@@ -1,10 +1,13 @@
 """Build the port's CUDA sources on first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package into one shared
+``nvcc`` compiles every ``csrc/*.cu`` of this package, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes) under ``chroma_tpu_torch/_build/``.  Kernels take
-raw device pointers and PyTorch's current CUDA stream; each C entry
-point returns the ``cudaError_t`` of its launch.
+seconds, not minutes) under ``chroma_tpu_torch/_build/``.  The library
+is named by a digest of the flags and of every file under ``csrc/``
+(headers included).  Kernels take raw device pointers and PyTorch's
+current CUDA stream; each C entry point returns the ``cudaError_t`` of
+its launch.
 
 Nothing is built when a module is imported: ``library()`` builds on the
 first call.  A failed build raises; there is no fallback.
@@ -14,6 +17,7 @@ import functools
 import glob
 import hashlib
 import os
+import shutil
 import subprocess
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -34,7 +38,6 @@ NVCC_FLAGS = (
     '-prec-div=true',
     '-prec-sqrt=true',
     '-Xptxas=-v',
-    '-shared',
     '-Xcompiler', '-fPIC',
 )
 
@@ -51,9 +54,12 @@ def nvcc_path():
     return os.path.join(CUDA_HOME, 'bin', 'nvcc')
 
 
-def _digest(srcs):
+def _digest():
+    """Digest of the flags and of every file under csrc/ (name and
+    content), so an edited header rebuilds too."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, '*'))):
+        h.update(os.path.basename(path).encode())
         with open(path, 'rb') as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -66,19 +72,38 @@ def build():
     srcs = sources()
     if not srcs:
         raise RuntimeError('no CUDA sources under %s' % CSRC_DIR)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, 'libchroma_tpu_torch_%s.so'
-                       % _digest(srcs))
+    digest = _digest()
+    out = os.path.join(BUILD_DIR, 'libchroma_tpu_torch_%s.so' % digest)
     if os.path.exists(out):
         return out, ''
-    tmp = '%s.%d.tmp' % (out, os.getpid())
-    cmd = [nvcc_path(), *NVCC_FLAGS, '-o', tmp, *srcs]
+    work = os.path.join(BUILD_DIR, '%s.%d' % (digest, os.getpid()))
+    os.makedirs(work, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(work, os.path.basename(src) + '.o')
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = ''
+    failed = []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log += '%s\n%s' % (' '.join(cmd), text)
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+    if failed:
+        raise RuntimeError('nvcc failed on %s:\n%s' % (failed, log))
+    tmp = os.path.join(work, os.path.basename(out))
+    cmd = [nvcc, '-shared', '-o', tmp, *[obj for _, obj, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    log += '%s\n%s%s' % (' '.join(cmd), proc.stdout, proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError('nvcc failed (%d):\n%s\n%s'
-                           % (proc.returncode, ' '.join(cmd), log))
+        raise RuntimeError('nvcc link failed (%d):\n%s'
+                           % (proc.returncode, log))
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     return out, log
 
 
@@ -94,5 +119,11 @@ def library():
         p, p, p, p, p, i,            # rows, org, dir, lht, active, n
         f, i, i, i,                  # sq, depth, instanced, max_iters
         p, p, p, p, p,               # triangle, distance, normal, mat, inc
+        p]                           # stream
+    lib.mbvh_walk_window.restype = i
+    lib.mbvh_walk_window.argtypes = [
+        p, p, i, i,                  # rows, state pointers, nkeys, n
+        f, i, i, i, i,               # sq, depth, instanced, od_slots, iters
+        i, i, p,                     # rbase, rcount, root_lohi
         p]                           # stream
     return lib

@@ -59,21 +59,24 @@ def intersect(gpu_geometry, number=10, nphotons=500000):
 
 
 def propagate(gpu_geometry, number=10, nphotons=500000, max_steps=100,
-              seed=1):
+              seed=1, **driver):
     """Full-physics photons propagated/s (reference:
-    chroma/benchmark.py:70), after one warm-up run.  Returns (rates,
-    photons of the last run)."""
+    chroma/benchmark.py:70), after one warm-up run.  ``driver`` goes to
+    ``GPUPhotons.propagate`` (``driver='steps'`` times the step loop,
+    ``od_slots``, ``width``, ``service_every`` the on-deck driver).
+    Returns (rates, photons of the last run)."""
     dev = gpu_geometry.device
     rng_states = gpu.get_rng_states(seed=seed, device=dev)
     photons = _isotropic_photons(nphotons)
     gpu.GPUPhotons(photons, dev).propagate(gpu_geometry, rng_states,
-                                           max_steps=max_steps)
+                                           max_steps=max_steps, **driver)
     run_times = []
     for _ in range(number):
         gp = gpu.GPUPhotons(photons, dev)
         _sync(dev)          # upload finished before the clock starts
         t0 = time.time()
-        gp.propagate(gpu_geometry, rng_states, max_steps=max_steps)
+        gp.propagate(gpu_geometry, rng_states, max_steps=max_steps,
+                     **driver)
         _sync(dev)
         run_times.append(time.time() - t0)
     return nphotons / np.array(run_times), gp

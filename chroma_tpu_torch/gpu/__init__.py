@@ -12,6 +12,7 @@ import torch
 
 from chroma_tpu import event
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry, pack_detector
+from chroma_tpu_torch.ops import fused as fused_ops
 from chroma_tpu_torch.ops import photon as photon_ops
 from chroma_tpu_torch.ops.daq import GPUDaq, GPUChannels, run_daq
 from chroma_tpu_torch.ops.propagate import i32
@@ -121,6 +122,7 @@ class GPUPhotons(object):
         self.stride = stride
         self.ncopies = ncopies
         self.last_steps = None
+        self.last_stats = None
 
     @classmethod
     def _from_state(cls, state, true_nphotons, stride=None, ncopies=1):
@@ -137,14 +139,39 @@ class GPUPhotons(object):
         return self.state['pos']
 
     def propagate(self, gpu_geometry, rng_states, max_steps=100,
-                  scatter_first=0):
+                  scatter_first=0, driver='fused', width=None,
+                  service_every=None, od_slots=1):
         """Propagate every photon to termination or ``max_steps``
         (reference gpu/photon.py:192), drawing from the generator of
-        ``rng_states``."""
-        draws = photon_ops.uniform_draws(rng_states.generator, len(self))
-        self.state, self.last_steps = photon_ops.propagate(
-            self.state, gpu_geometry.geom, draws, max_steps=max_steps,
-            scatter_first=scatter_first)
+        ``rng_states``.
+
+        ``driver='fused'`` (the default, as in the JAX package) runs the
+        on-deck lane-pool driver ops/fused.propagate_fused with
+        ``width``, ``service_every`` and ``od_slots`` and keeps its
+        int32[4] stats [service passes, photon-steps, lane-iterations,
+        0] in ``last_stats``.  ``driver='steps'`` runs the step loop
+        ops/photon.propagate and keeps its step count in
+        ``last_steps``."""
+        geom = gpu_geometry.geom
+        if driver == 'fused':
+            self.state, stats = fused_ops.propagate_fused(
+                self.state, geom, fused_ops.uniform_draws(
+                    rng_states.generator),
+                max_steps=max_steps, width=width,
+                service_every=service_every or fused_ops.SERVICE_EVERY,
+                od_slots=od_slots, scatter_first=scatter_first)
+            self.last_stats = stats.cpu().numpy()
+            self.last_steps = None
+        elif driver == 'steps':
+            draws = photon_ops.uniform_draws(rng_states.generator,
+                                             len(self))
+            self.state, self.last_steps = photon_ops.propagate(
+                self.state, geom, draws, max_steps=max_steps,
+                scatter_first=scatter_first)
+            self.last_stats = None
+        else:
+            raise ValueError("driver must be 'fused' or 'steps', got %r"
+                             % (driver,))
 
     def get(self):
         """Download as Photons (copies concatenated)."""

@@ -1,10 +1,11 @@
 """Closest-hit queries against the MBVH.
 
 Counterpart of chroma_tpu/ops/mbvh.py.  ``intersect_mesh`` keeps that
-module's contract and dispatches on where the tensors live: CUDA tensors
-go to the hand-written walker kernel, CPU tensors to its plain PyTorch
-version (ops/mbvh_walk.py).  Both compute the TPU walker's traversal, so
-results do not depend on the device.
+module's contract, and ``walk_window`` runs the fused driver's on-deck
+walker window.  Both dispatch on where the tensors live: CUDA tensors
+go to the hand-written walker kernels, CPU tensors to their plain
+PyTorch versions (ops/mbvh_walk.py).  Both compute the TPU walker's
+traversal, so results do not depend on the device.
 """
 import numpy as np
 import torch
@@ -54,3 +55,20 @@ def intersect_mesh(origin, direction, tables, last_hit_triangle=None,
                 active.contiguous(), tquant_scale(tables),
                 int(tables.mbvh_depth), bool(tables.mbvh_instanced),
                 min(int(max_iters), 65536))
+
+
+def walk_window(tables, W, n_iters, od_slots, rbase, rcount, root_lohi,
+                plain=False):
+    """``n_iters`` on-deck walker iterations over every lane of the
+    walker state ``W`` (ops/mbvh_walk.py ``state_fields``), in place:
+    walks advance one row each, and a walk that drains parks its results
+    and restarts on its lane's on-deck ray.  ``rbase``, ``rcount`` and
+    ``root_lohi`` come from ``mbvh_walk.root_seed_args(tables)``.
+    ``plain=True`` runs the plain version on any device (the reference
+    the kernel is held against on a card)."""
+    walk = mbvh_walk.walk_window_plain \
+        if plain or W['act'].device.type == 'cpu' \
+        else mbvh_walk.walk_window_cuda
+    return walk(tables.mbvh_rows, W, int(n_iters), int(tables.mbvh_depth),
+                bool(tables.mbvh_instanced), tquant_scale(tables),
+                int(od_slots), rbase, rcount, root_lohi)

@@ -24,10 +24,12 @@ def pick_seed():
 
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
-                 device=None):
+                 device=None, driver='fused'):
         """``detector``: a Geometry/Detector (flattened here if needed)
         or a geometry string for chroma_tpu.loader.  Photon generation
-        from vertices (``geant4_processes`` > 0) is not ported."""
+        from vertices (``geant4_processes`` > 0) is not ported.
+        ``driver`` is ``GPUPhotons.propagate``'s: 'fused' (the on-deck
+        lane-pool driver) or 'steps' (the step loop)."""
         if geant4_processes:
             raise NotImplementedError(
                 'photon generation from vertices (geant4_processes > 0) is '
@@ -38,6 +40,7 @@ class Simulation(object):
             detector = load_geometry_from_string(detector)
         detector.flatten()
         self.detector = detector
+        self.driver = driver
         self.device = torch.device(device if device is not None
                                    else gpu.default_device())
         self.seed = pick_seed() if seed is None else seed
@@ -61,7 +64,7 @@ class Simulation(object):
                                      copy_triangles=False,
                                      copy_weights=False)
         gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                              max_steps=max_steps)
+                              max_steps=max_steps, driver=self.driver)
         is_detector = hasattr(self.detector, 'num_channels')
 
         if keep_photons_end:

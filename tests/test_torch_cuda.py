@@ -100,3 +100,83 @@ def test_intersect_mesh_dispatches_to_kernel(dev):
     before = mbvh_walk.closest_hit_launches.launches
     tmbvh.intersect_mesh(o, d, g)
     assert mbvh_walk.closest_hit_launches.launches == before + 1
+
+
+# ---- the on-deck window kernel (K3, K4) and the driver around it ------
+
+def _window_tables(name, dev):
+    if name == 'sphere24':
+        return pack_geometry(host.mesh_geometry(
+            host.make.sphere(50.0, nsteps=24)), dev)
+    tiny = host.demo.tiny()
+    tiny.flatten()
+    return pack_geometry(tiny, dev)
+
+
+def _clone_state(W):
+    return {k: mbvh_walk.lane_minor(v.clone()) for k, v in W.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,n,od_slots', [
+    ('sphere24', 256, 1), ('sphere24', 256, 2), ('tiny', 256, 1),
+    ('tiny', 256, 2), ('sphere24', 129, 2), ('tiny', 129, 1)])
+def test_window_kernel_matches_plain(dev, name, n, od_slots):
+    """A service window of 17 iterations, then a long window in which
+    every walk drains: every state field bit-equal after each."""
+    g = _window_tables(name, dev)
+    depth, inst = int(g.mbvh_depth), bool(g.mbvh_instanced)
+    sq = tmbvh.tquant_scale(g)
+    seed_args = mbvh_walk.root_seed_args(g)
+    k = mbvh_walk.random_window_state(g.mbvh_rows, depth, inst, sq, n,
+                                      od_slots, n + od_slots)
+    p = _clone_state(k)
+    counter = mbvh_walk.walk_window_launches[od_slots]
+    for iters in (17, 3000):
+        before = counter.launches
+        tmbvh.walk_window(g, k, iters, od_slots, *seed_args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        tmbvh.walk_window(g, p, iters, od_slots, *seed_args, plain=True)
+        for key in k:
+            a, b = k[key], p[key]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (iters, key)
+    assert not k['act'].any() and (k['lvl'] < 0).all()
+    assert ((k['pad'] & 1) != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('od_slots', [1, 2])
+def test_ondeck_driver_kernel_matches_plain(dev, od_slots):
+    """The whole on-deck driver on demo.tiny, window kernel against its
+    plain version, same generator seed: the final photons bit-equal."""
+    from chroma_tpu_torch import gpu
+    from chroma_tpu_torch.ops import fused
+    g = _window_tables('tiny', dev)
+    np.random.seed(4)
+    ph = host.photon_bomb(8192, 400.0, (200.0, 0.0, 0.0)).photons_beg
+    outs = []
+    for plain in (False, True):
+        state = gpu.GPUPhotons(ph, dev).state
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        outs.append(fused.propagate_fused(
+            state, g, fused.uniform_draws(gen), max_steps=40, width=2048,
+            service_every=17, od_slots=od_slots, plain_walker=plain))
+    (k, ks), (p, ps) = outs
+    assert torch.equal(ks, ps)
+    for key in k:
+        a, b = k[key], p[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
+
+
+@pytest.mark.cuda
+def test_referee_terminal_passthrough_on_card(dev):
+    from chroma_tpu_torch import referee
+    g = _window_tables('tiny', dev)
+    for od_slots in (1, 2):
+        assert referee.terminal_passthrough(g, od_slots=od_slots) == []

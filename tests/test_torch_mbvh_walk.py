@@ -187,4 +187,5 @@ def test_nvcc_flags_keep_ieee_floats():
     assert '--fmad=false' in _build.NVCC_FLAGS
     assert '--use_fast_math' not in flags
     assert _build.sources() == [
-        _build.os.path.join(_build.CSRC_DIR, 'mbvh_walk.cu')]
+        _build.os.path.join(_build.CSRC_DIR, name)
+        for name in ('mbvh_walk.cu', 'mbvh_walk_window.cu')]

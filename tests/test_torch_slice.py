@@ -1,5 +1,7 @@
 """The port's whole slice against the JAX package's: Simulation.simulate
-with DAQ on demo.tiny, and the port's freedom from JAX.
+with DAQ on demo.tiny, through both of the port's drivers (the on-deck
+lane-pool driver, its default, and the step loop), and the port's
+freedom from JAX.
 
 The two packages draw different random numbers (threefry keys against a
 torch.Generator), so the comparison is statistical: the same numpy-seeded
@@ -39,16 +41,24 @@ def _summarize(events):
 
 
 @pytest.fixture(scope='module')
-def both():
+def jax_events():
     from chroma_tpu.sim import Simulation as JaxSimulation
-    from chroma_tpu_torch.sim import Simulation
     jsim = JaxSimulation(demo.tiny(), geant4_processes=0, seed=21)
-    jev = list(jsim.simulate(_bombs(5), run_daq=True,
-                             keep_photons_end=True))
-    psim = Simulation(demo.tiny(), seed=21, device='cpu')
-    pev = list(psim.simulate(_bombs(5), run_daq=True,
-                             keep_photons_end=True))
-    return jev, pev
+    return list(jsim.simulate(_bombs(5), run_daq=True,
+                              keep_photons_end=True))
+
+
+def _port_events(driver):
+    from chroma_tpu_torch.sim import Simulation
+    psim = Simulation(demo.tiny(), seed=21, device='cpu', driver=driver)
+    return list(psim.simulate(_bombs(5), run_daq=True,
+                              keep_photons_end=True))
+
+
+@pytest.fixture(scope='module')
+def both(jax_events):
+    """JAX events and the port's, through its default on-deck driver."""
+    return jax_events, _port_events('fused')
 
 
 def test_simulate_detection_fraction_matches_jax(both):
@@ -88,9 +98,24 @@ def test_simulate_daq_channels_match_jax(both):
         assert term.mean() >= 0.99
 
 
+def test_simulate_step_driver_matches_jax(jax_events):
+    """The step loop (driver='steps') against the JAX Simulation: the
+    detection fraction within Poisson, hit times within chi^2/ndf < 2,
+    >= 99% of photons terminal."""
+    pev = _port_events('steps')
+    jn, jt, _ = _summarize(jax_events)
+    pn, pt, _ = _summarize(pev)
+    assert abs(jn - pn) < 4.0 * np.sqrt(jn + pn), (jn, pn)
+    assert chi2_ndf(jt, pt) < 2.0
+    for ev in pev:
+        term = (ev.photons_end.flags & event.TERMINAL_FLAGS) != 0
+        assert term.mean() >= 0.99
+
+
 def test_port_never_imports_jax():
-    """Importing the port and running a small propagation with DAQ must
-    leave jax out of sys.modules."""
+    """Importing the port and running a small propagation with DAQ (the
+    on-deck driver, one and two slots, and the step loop) must leave jax
+    out of sys.modules."""
     code = '\n'.join([
         'import sys',
         'import numpy as np',
@@ -101,6 +126,11 @@ def test_port_never_imports_jax():
         'ph = host.photon_bomb(500, 400.0, (200.0, 0.0, 0.0)).photons_beg',
         'ev = next(sim.simulate([ph], run_daq=True))',
         'assert ev.channels is not None',
+        'from chroma_tpu_torch import gpu',
+        'for kw in (dict(od_slots=1), dict(od_slots=2), dict(driver="steps")):',
+        '    p = gpu.GPUPhotons(ph, "cpu")',
+        '    p.propagate(sim.gpu_geometry, sim.rng_states, **kw)',
+        '    assert (p.last_stats is not None) != ("driver" in kw)',
         "bad = sorted(m for m in sys.modules if m == 'jax'",
         "             or m.startswith(('jax.', 'jaxlib', 'flax'))",
         "             or m.startswith(('chroma_tpu.ops', 'chroma_tpu.gpu',",

@@ -1,14 +1,21 @@
 """Where the time of one chroma_tpu_torch propagation goes, on one card.
 
     python tools/profile_torch_propagate.py [--nphotons N] [--detector full]
+        [--driver fused|steps] [--od-slots 1|2] [--width W]
+        [--service-every K] [--sweep]
 
 Loads the packed tables from the table cache ('full' is filled by
 ``chip_smoke.py``, under .cache/chroma_tpu in the checkout unless
 CHROMA_TPU_CACHE says otherwise), propagates one isotropic 400 nm batch
 from the centre once to warm up, then once under ``torch.profiler`` and
-prints: wall time, the number of steps, the device time of the walker
-kernel against all device time, the device's idle share over the run,
-and the ten largest device kernels.  Needs a CUDA card.
+prints: wall time, the driver's step count or stats, the device time of
+the walker kernel against all device time, the device's idle share over
+the run, and the ten largest device kernels.
+
+``--sweep`` instead times the on-deck driver (``benchmark.propagate``,
+one warm-up and two timed runs each) over lane widths and service
+windows and prints photons/s with the driver's stats for each.  Needs a
+CUDA card.
 """
 import argparse
 import os
@@ -24,37 +31,85 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chroma_tpu_torch import benchmark, gpu  # noqa: E402
+from chroma_tpu_torch.ops import fused  # noqa: E402
+
+SWEEP_WIDTHS = (32768, 65536, 131072)
+SWEEP_SERVICE_EVERY = (8, 17, 32)
+_WALKERS = ('closest_hit_kernel', 'walk_window_kernel')
+
+
+def _driver_kw(args):
+    if args.driver == 'steps':
+        return dict(driver='steps')
+    return dict(od_slots=args.od_slots, width=args.width,
+                service_every=args.service_every)
+
+
+def _stats_line(gp, nphotons, width, service_every):
+    if gp.last_stats is None:
+        return '%d steps' % gp.last_steps
+    st = gp.last_stats
+    w = min(width or fused.DEFAULT_WIDTH, nphotons)
+    return ('%d service passes, %d photon-steps, %d lane-iterations, '
+            'holding share %.4f' % (st[0], st[1], st[2],
+                                    st[2] / (st[0] * w * service_every)))
+
+
+def sweep(gg, args, card):
+    for width in SWEEP_WIDTHS:
+        for se in SWEEP_SERVICE_EVERY:
+            rates, gp = benchmark.propagate(
+                gg, number=2, nphotons=args.nphotons, max_steps=100,
+                od_slots=args.od_slots, width=width, service_every=se)
+            print('sweep width %d service_every %d od_slots %d: photons/s '
+                  '%s, mean %.0f; %s (%s)'
+                  % (width, se, args.od_slots,
+                     ['%.0f' % r for r in rates], rates.mean(),
+                     _stats_line(gp, args.nphotons, width, se), card),
+                  flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--nphotons', type=int, default=1 << 20)
     parser.add_argument('--detector', default='full')
+    parser.add_argument('--driver', default='fused',
+                        choices=('fused', 'steps'))
+    parser.add_argument('--od-slots', type=int, default=1)
+    parser.add_argument('--width', type=int, default=None)
+    parser.add_argument('--service-every', type=int,
+                        default=fused.SERVICE_EVERY)
+    parser.add_argument('--sweep', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA card')
     dev = torch.device('cuda')
+    card = torch.cuda.get_device_name(0)
     gg = gpu.GPUDetector.from_table_cache(args.detector, device=dev)
     if gg is None:
         raise SystemExit("no '%s' table cache" % args.detector)
+    if args.sweep:
+        return sweep(gg, args, card)
     photons = benchmark._isotropic_photons(args.nphotons)
     rng = gpu.get_rng_states(seed=1, device=dev)
-    gpu.GPUPhotons(photons, dev).propagate(gg, rng)
+    kw = _driver_kw(args)
+    gpu.GPUPhotons(photons, dev).propagate(gg, rng, **kw)
     p = gpu.GPUPhotons(photons, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        p.propagate(gg, rng)
+        p.propagate(gg, rng, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
     walk_us = sum(e.self_device_time_total for e in events
-                  if 'closest_hit_kernel' in e.key)
-    print('%s: %d photons, %d steps, wall %.3f s, %.0f photons/s'
-          % (torch.cuda.get_device_name(0), args.nphotons, p.last_steps,
+                  if any(name in e.key for name in _WALKERS))
+    print('%s: %d photons, %s driver, %s; wall %.3f s, %.0f photons/s'
+          % (card, args.nphotons, args.driver,
+             _stats_line(p, args.nphotons, args.width, args.service_every),
              wall, args.nphotons / wall))
     print('device busy %.3f s (idle share %.3f); walker kernel %.3f s '
           '(%.3f of busy)' % (total_us / 1e6, 1 - total_us / 1e6 / wall,
