@@ -5,15 +5,20 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles chroma_tpu_torch/csrc/*.cu with nvcc, one process
-     per source, all started together;
-  3. the closest-hit walker kernel against its plain PyTorch version on
-     the card (flat sphere, instanced demo.tiny, last-hit/active, ragged
-     widths, 500,000 center rays in the full demo): equal triangles and
-     material codes, bit-equal distances and normals, and both times;
+     per source, all started together; prints each kernel's ptxas
+     registers, stack frame and spills;
+  3. the closest-hit walker kernel (one warp per ray) against its plain
+     PyTorch version on the card (flat sphere, instanced demo.tiny,
+     last-hit/active, ragged widths at the warp and block edges, the tie
+     scene flat and instanced with axis-parallel rays, 500,000 center
+     rays in the full demo and, flat, in demo.tiny): equal triangles and
+     material codes, bit-equal distances and normals; both times, and
+     the kernel's bound counted from this run's walks;
   4. the on-deck window kernel (K3, K4) against its plain version: flat
-     sphere, demo.tiny and the full demo, od_slots 1 and 2, a ragged
-     width; a service window and a long window in which every walk
-     drains; every state field bit-equal; both times at full-demo width;
+     sphere, demo.tiny, the tie scene and the full demo, od_slots 1 and
+     2, ragged widths; a service window and a long window in which every
+     walk drains; every state field bit-equal; both times and the bound
+     at full-demo width;
   5. the whole on-deck driver on demo.tiny, window kernel against plain
      walker, same generator seed: final photons bit-equal; referee
      check 1 (terminal passthrough) bit-exact on the full demo;
@@ -30,9 +35,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      each other.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
+
+A kernel's bound is the least time the card could take for its work:
+the larger of the bytes it must move (each input read once, each output
+written once; of the rows table, the rows this run's walks read; the
+16-bit pending codes at 2 bytes) over 3.35 TB/s and the float
+operations this run's walks needed (counted op by op from the code, see
+FLOPS_*) over 67 TFLOP/s fp32, the
+published peaks of an H100 SXM at 700 W.  No PyTorch call computes a
+BVH walk, so no kernel has a library time.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +73,50 @@ NRAYS = 500000          # benchmark.intersect's batch
 NPHOTONS = 1 << 20      # bench.py's batch
 NDRIVER = 65536         # photons of the driver's kernel-against-plain run
 LONG_WINDOW = 4096      # iterations: every walk drains well before
+# ray counts at the edges of a warp (one warp walks one ray) and of a
+# block of 8 rays; 85, 341 and 1001 are not multiples of the block
+GROUP_EDGES = (1, 31, 33, 85, 129, 341, 1001)
+
+PEAK_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12    # H100 SXM, HBM3
+# Float operations, counted op by op from
+# chroma_tpu_torch/csrc/mbvh_walk_core.cuh: one per float add, sub, mul,
+# div, min, max, compare or floor; conversions, selects, sign and
+# absolute-value modifiers and integer work are not counted.
+# One child box of an internal row (`slab`, `slab_axis`, the push in
+# `process_row`): dequantize lo and hi on 3 axes, 12 (a mul and an add
+# each); t0 and t1 on 3 axes, 12; isfinite(inv), 3; min and max of t0,
+# t1, 6; fold the axes into tmin, tmax, 4; clamp tmin at 0, 1;
+# tmin <= tmax and tmin <= min_dist, 2; floor(tmin * sq), 2; the clip of
+# the code to [0, 65534], 2.
+FLOPS_SLAB = 44
+# A root child in `seed_root`: from the root row (the closest-hit
+# kernel), the same but the min_dist test; from the dequantized
+# `root_lohi` (the window kernel's restarts), also without the 12 of
+# dequantization.
+FLOPS_SEED_ROW = 43
+FLOPS_SEED_LOHI = 31
+# One triangle of a cluster row (Moller-Trumbore in `process_row`):
+# dequantize 9 coordinates, 18; e1, e2, s, 9; h = d x e2, 9; a = e1.h,
+# 5; |a| > eps, 1; f = 1/a, 1; u = f (s.h), 6; q = s x e1, 9;
+# v = f (d.q), 6; t = f (e2.q), 6; u + v and the 5 tests of u, v,
+# u + v and t, 6; t < the thread's best, 1.
+FLOPS_MT = 77
+# Once a cluster row: the winner's normal e1 x e2, 9; the improvement
+# test, 1; + 0.0 on three components, 3.  (The rotation of an improved
+# instanced normal, 15, is not tallied.)
+FLOPS_CLUSTER_ROW = 13
+# Once an entry row: org - translation, 3; rotate org and dir, 30;
+# 1/dir, 3; -org/dir, 3.
+FLOPS_ENTRY = 39
+# Once a processed row (the pop): floor(min_dist * sq) + 1 and its
+# clip, 5.
+FLOPS_POP = 5
+# Once a (re)started ray (`set_ray`): 1/dir and -org/dir, 6.
+FLOPS_RAY = 6
+ROW_BYTES = mbvh_walk.ROW_WIDTH * 4
+RAY_IN_BYTES = 12 + 12 + 4 + 1      # org, dir, last-hit triangle, active
+RAY_OUT_BYTES = 4 + 4 + 12 + 4 + 1  # triangle, distance, normal, mat, inc
 
 
 def check(ok, what):
@@ -86,9 +145,78 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(flops, nbytes):
+    """(bound ms, what binds) for ``flops`` float operations moving
+    ``nbytes`` bytes."""
+    t_ops = flops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def work_flops(work, rcount, flops_seed_child):
+    """Float operations of the walks tallied in ``work``, with root
+    seeds of ``rcount`` children at ``flops_seed_child`` each."""
+    return (work.get('internal_slots', 0) * FLOPS_SLAB
+            + work.get('cluster_slots', 0) * FLOPS_MT
+            + work.get('cluster_rows', 0) * FLOPS_CLUSTER_ROW
+            + work.get('entry_rows', 0) * FLOPS_ENTRY
+            + (work.get('internal_rows', 0) + work.get('cluster_rows', 0))
+            * FLOPS_POP
+            + work.get('seeds', 0) * (FLOPS_RAY + rcount * flops_seed_child))
+
+
+def closest_hit_bound(args):
+    """Work, bytes and bound of one closest-hit launch on ``args``,
+    counted from the plain version's walks on the same inputs."""
+    rows, active, depth = args[0], args[4], args[6]
+    work = {}
+    mbvh_walk.closest_hit_plain(*args, work=work)
+    rcount = 0
+    if depth >= 2:
+        rcount = (int(rows[0, mbvh_walk.HDR_KIND]) >> 8) & 0xFFFFFF
+        work['seeds'] = int(active.sum())
+        work['visited'][0] = True
+    n = active.shape[0]
+    flops = work_flops(work, rcount, FLOPS_SEED_ROW)
+    nbytes = n * (RAY_IN_BYTES + RAY_OUT_BYTES) \
+        + int(work['visited'].sum()) * ROW_BYTES
+    return dict(work, flops=flops, bytes=nbytes,
+                rows_read=int(work['visited'].sum()),
+                lane_iterations=work['internal_rows'] + work['cluster_rows'],
+                bound=bound(flops, nbytes))
+
+
+def report_bound(what, b, ms):
+    print('%s: %d lane-iterations (%d internal, %d cluster rows), %d '
+          'rows read; %.3f GFLOP, %.1f MB; bound %.4f ms (%s); kernel '
+          '%.3f ms = %.1f%% of the bound'
+          % (what, b['lane_iterations'], b['internal_rows'],
+             b['cluster_rows'], b['rows_read'], b['flops'] / 1e9,
+             b['bytes'] / 1e6, b['bound'][0], b['bound'][1], ms,
+             100.0 * b['bound'][0] / ms), flush=True)
+
+
+def ptxas_summary(log):
+    """{kernel<template args>: 'registers, stack, spills'} from
+    nvcc -Xptxas=-v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r'(closest_hit_kernel|walk_window_kernel)I'
+                      r'((?:L[a-z]+\d+E)+)E', line)
+        if 'Compiling entry function' in line and m:
+            name = '%s<%s>' % (m.group(1), ', '.join(
+                re.findall(r'L[a-z]+(\d+)E', m.group(2))))
+            out[name] = ''
+        elif name and ('stack frame' in line or 'registers' in line):
+            out[name] = (out[name] + '; ' if out[name] else '') \
+                + line.split(':', 1)[-1].strip()
+    return out
+
+
 def compare_walk(tables, org, dirv, dev, lht=None, active=None):
     """Kernel vs plain version on the same card tensors.  Returns
-    (number of hits, max abs difference of distance and normal)."""
+    (number of hits, max abs difference of distance and normal, the
+    kernel's arguments)."""
     n = len(org)
     o = torch.from_numpy(org).to(dev)
     d = torch.from_numpy(dirv).to(dev)
@@ -146,21 +274,35 @@ def compare_state(k, p, what):
 
 
 def clone_state(W):
-    return {k: mbvh_walk.lane_minor(v.clone()) for k, v in W.items()}
+    return mbvh_walk.window_layout({k: v.clone() for k, v in W.items()})
 
 
-def compare_window(tables, n, od_slots, seed, what):
-    """Window kernel against plain from one seeded state: a service
-    window, then a long window in which every walk drains."""
+def axis_state(tables, od_slots, dev):
+    """Six lanes walking along +-x, +-y, +-z (1/dir infinite on two
+    axes), with on-deck rays along the same axes reversed and rotated."""
+    o, d = (torch.from_numpy(a).to(dev) for a in host.axis_rays())
+    every = torch.ones(6, dtype=torch.bool, device=dev)
+    return mbvh_walk.window_state(
+        tables.mbvh_rows, int(tables.mbvh_depth),
+        bool(tables.mbvh_instanced), tmbvh.tquant_scale(tables), o, d,
+        every, [(o, -d, every), (o, d.roll(2, 0), every)][:od_slots])
+
+
+def compare_window(tables, n, od_slots, seed, what, state=None):
+    """Window kernel against plain from one seeded state (``state``, or
+    a random one of ``n`` lanes): a service window, then a long window
+    in which every walk drains."""
     depth, inst = int(tables.mbvh_depth), bool(tables.mbvh_instanced)
     args = mbvh_walk.root_seed_args(tables)
-    k = mbvh_walk.random_window_state(
+    k = state if state is not None else mbvh_walk.random_window_state(
         tables.mbvh_rows, depth, inst, tmbvh.tquant_scale(tables), n,
         od_slots, seed)
     p = clone_state(k)
     err = 0.0
     for iters in (fused.SERVICE_EVERY, LONG_WINDOW):
-        tmbvh.walk_window(tables, k, iters, od_slots, *args)
+        mbvh_walk.walk_window_cuda(
+            tables.mbvh_rows, k, iters, depth, inst,
+            tmbvh.tquant_scale(tables), od_slots, *args)
         torch.cuda.synchronize()
         tmbvh.walk_window(tables, p, iters, od_slots, *args, plain=True)
         err = max(err, compare_state(k, p, '%s, %d iterations'
@@ -168,17 +310,51 @@ def compare_window(tables, n, od_slots, seed, what):
     check(not k['act'].any() and bool((k['lvl'] < 0).all()),
           '%s: walks left after the long window' % what)
     parked = int(((k['pad'] & 1) != 0).sum())
-    check(parked > 0, '%s: no walk parked' % what)
+    check(parked > 0 or n < 32, '%s: no walk parked' % what)
     print('window %s, od_slots %d: %d lanes, %d parked, bit-equal after '
-          '%d and %d iterations' % (what, od_slots, n, parked,
-                                    fused.SERVICE_EVERY, LONG_WINDOW))
+          '%d and %d iterations'
+          % (what, od_slots, n, parked, fused.SERVICE_EVERY, LONG_WINDOW))
     return err
+
+
+def state_bytes(W):
+    """Bytes of a window state, the pending codes at 2 bytes: they are
+    16-bit codes (the TPU kernel keeps them as int16), whatever the
+    port's storage holds them in."""
+    return sum(v.numel() * (2 if k == 'tcodes' else v.element_size())
+               for k, v in W.items())
+
+
+def window_bound(tables, W0, od_slots, args):
+    """Work, bytes and bound of one service window from state ``W0``,
+    counted from the plain version's walks on a copy: the state read
+    once and, for the lanes that change, written once, the rows read,
+    ``root_lohi``."""
+    W = clone_state(W0)
+    work = {}
+    mbvh_walk.walk_window_plain(
+        tables.mbvh_rows, W, fused.SERVICE_EVERY, int(tables.mbvh_depth),
+        bool(tables.mbvh_instanced), tmbvh.tquant_scale(tables), od_slots,
+        *args, work=work)
+    n = W0['act'].shape[0]
+    sbytes = state_bytes(W0)
+    changed = int(work['changed'].sum()) if 'changed' in work else 0
+    rows_read = int(work['visited'].sum()) if 'visited' in work else 0
+    flops = work_flops(work, args[1], FLOPS_SEED_LOHI)
+    nbytes = sbytes + sbytes * changed // n \
+        + rows_read * ROW_BYTES + args[2].numel() * 4
+    return dict(work, flops=flops, bytes=nbytes, rows_read=rows_read,
+                internal_rows=work.get('internal_rows', 0),
+                cluster_rows=work.get('cluster_rows', 0),
+                lane_iterations=work.get('internal_rows', 0)
+                + work.get('cluster_rows', 0),
+                bound=bound(flops, nbytes))
 
 
 def time_window(tables, n, od_slots, reps=5):
     """Device ms of one service window from a fresh seeded state: the
     kernel (mean of ``reps`` runs) and the plain version (one run), each
-    after a warm-up run."""
+    after a warm-up run; and the window's bound."""
     depth, inst = int(tables.mbvh_depth), bool(tables.mbvh_instanced)
     args = mbvh_walk.root_seed_args(tables)
     W0 = mbvh_walk.random_window_state(
@@ -200,7 +376,7 @@ def time_window(tables, n, od_slots, reps=5):
             if r:
                 times.append(start.elapsed_time(stop))
         out.append(sum(times) / len(times))
-    return out
+    return out + [window_bound(tables, W0, od_slots, args)]
 
 
 def full_detector(dev):
@@ -243,9 +419,11 @@ def main():
     _build.library()
     print('build: %s in %.1f s' % (os.path.relpath(path, ROOT),
                                    time.time() - t0))
-    for line in log.splitlines():
-        if 'registers' in line or 'spill' in line or 'stack frame' in line:
-            print('  ptxas:', line.strip())
+    ptxas = ptxas_summary(log)
+    check(len(ptxas) == 6, 'ptxas reported %d of 6 kernel instantiations'
+          % len(ptxas))
+    for name, what in sorted(ptxas.items()):
+        print('  ptxas: %s: %s' % (name, what))
     sys.stdout.flush()
 
     # ---- 3. kernel against its plain version --------------------------
@@ -257,10 +435,6 @@ def main():
     err = max(err, e)
     print('walk flat sphere (depth %d): 256 rays, %d hits, bit-equal'
           % (sphere.mbvh_depth, hits))
-    for n in (341, 85, 129):
-        hits, e, _ = compare_walk(sphere, *rays(n, 7), dev)
-        err = max(err, e)
-        print('walk flat sphere, ragged n=%d: %d hits, bit-equal' % (n, hits))
 
     sph16 = pack_geometry(host.mesh_geometry(
         host.make.sphere(50.0, nsteps=16)), dev)
@@ -280,6 +454,31 @@ def main():
     err = max(err, e)
     print('walk instanced demo.tiny (depth %d): 256 rays, %d hits, '
           'bit-equal' % (tiny_geom.mbvh_depth, hits))
+    for name, tables in (('flat sphere', sphere), ('demo.tiny', tiny_geom)):
+        for n in GROUP_EDGES:
+            _, e, _ = compare_walk(tables, *rays(n, 100 + n), dev)
+            err = max(err, e)
+        print('walk %s, ragged n=%s: bit-equal'
+              % (name, '/'.join(map(str, GROUP_EDGES))))
+
+    ties = {'flat': pack_geometry(host.tie_geometry(), dev),
+            'instanced': pack_geometry(host.tie_geometry(), dev,
+                                       instancing=True)}
+    for name, tables in ties.items():
+        check(tables.mbvh_instanced == (name == 'instanced'),
+              'tie scene %s packed instanced=%s'
+              % (name, tables.mbvh_instanced))
+        o, d = rays(300, 8)
+        hits, e, args = compare_walk(tables, o, d, dev)
+        first = mbvh_walk.closest_hit_plain(*args)['triangle']
+        _, e2, _ = compare_walk(tables, o, d, dev, lht=first)
+        _, e3, _ = compare_walk(tables, *host.axis_rays(), dev)
+        err = max(err, e, e2, e3)
+        check(hits == 300, 'tie scene: %d of 300 rays hit' % hits)
+        print('walk tie scene, %s (twin triangles%s): 300 rays, their '
+              'last-hit twins skipped, 6 axis-parallel rays: bit-equal'
+              % (name, ', two equal entry boxes' if name == 'instanced'
+                 else ''))
 
     gg = full_detector(dev)
     nrays = NRAYS
@@ -293,18 +492,44 @@ def main():
           flush=True)
     check(hits > 0.9 * nrays, 'full demo: only %d of %d rays hit'
           % (hits, nrays))
+    ch_bound = closest_hit_bound(args)
+    report_bound('closest hit K2, full demo, %d center rays' % nrays,
+                 ch_bound, ms)
+
+    # K1 at a main-path-sized shape: demo.tiny packed flat
+    tiny_flat = pack_geometry(tiny, dev, instancing=False)
+    hits, e, args1 = compare_walk(tiny_flat, pos, dirs, dev)
+    err = max(err, e)
+    ms1 = cuda_ms(lambda: mbvh_walk.closest_hit_cuda(*args1), 5)
+    plain_ms1 = cuda_ms(lambda: mbvh_walk.closest_hit_plain(*args1), 1)
+    print('walk demo.tiny flat (K1, depth %d, %d rows): %d center rays, '
+          '%d hits, bit-equal; kernel %.3f ms, plain %.3f ms (%s)'
+          % (tiny_flat.mbvh_depth, tiny_flat.mbvh_rows.shape[0], nrays,
+             hits, ms1, plain_ms1, card), flush=True)
+    report_bound('closest hit K1, demo.tiny flat, %d center rays' % nrays,
+                 closest_hit_bound(args1), ms1)
 
     # ---- 4. the on-deck window kernel against its plain version -------
     werr = {1: 0.0, 2: 0.0}
-    for what, tables, n, od_slots in (
-            ('flat sphere', sphere, 256, 1), ('flat sphere', sphere, 256, 2),
-            ('flat sphere, ragged', sphere, 129, 2),
-            ('demo.tiny', tiny_geom, 256, 1), ('demo.tiny', tiny_geom, 256, 2),
-            ('demo.tiny, ragged', tiny_geom, 129, 1),
-            ('full demo', gg.geom, fused.DEFAULT_WIDTH, 1),
-            ('full demo', gg.geom, fused.DEFAULT_WIDTH, 2)):
+    cases = [('flat sphere', sphere, 256, 1), ('flat sphere', sphere, 256, 2),
+             ('demo.tiny', tiny_geom, 256, 1), ('demo.tiny', tiny_geom, 256, 2),
+             ('tie scene, flat', ties['flat'], 256, 1),
+             ('tie scene, instanced', ties['instanced'], 256, 2)]
+    cases += [('%s, ragged' % name, tables, n, od_slots)
+              for name, tables in (('flat sphere', sphere),
+                                   ('demo.tiny', tiny_geom))
+              for n in (1, 31, 33, 129, 1001) for od_slots in (1, 2)]
+    cases += [('full demo', gg.geom, fused.DEFAULT_WIDTH, 1),
+              ('full demo', gg.geom, fused.DEFAULT_WIDTH, 2)]
+    for what, tables, n, od_slots in cases:
         werr[od_slots] = max(werr[od_slots], compare_window(
             tables, n, od_slots, n + od_slots, what))
+    for what, tables in (('tie scene, flat', ties['flat']),
+                         ('tie scene, instanced', ties['instanced'])):
+        for od_slots in (1, 2):
+            werr[od_slots] = max(werr[od_slots], compare_window(
+                tables, 6, od_slots, 0, what + ', axis-parallel rays',
+                state=axis_state(tables, od_slots, dev)))
     wms = {}
     for od_slots in (1, 2):
         wms[od_slots] = time_window(gg.geom, fused.DEFAULT_WIDTH, od_slots)
@@ -312,6 +537,10 @@ def main():
               'kernel %.3f ms, plain %.3f ms (%s)'
               % (od_slots, fused.DEFAULT_WIDTH, fused.SERVICE_EVERY,
                  wms[od_slots][0], wms[od_slots][1], card), flush=True)
+        report_bound('window K%d, full demo, %d lanes x %d iterations'
+                     % (2 + od_slots, fused.DEFAULT_WIDTH,
+                        fused.SERVICE_EVERY), wms[od_slots][2],
+                     wms[od_slots][0])
 
     # ---- 5. the whole on-deck driver, kernel against plain walker -------
     np.random.seed(4)
@@ -358,8 +587,9 @@ def main():
     ch_launches = mbvh_walk.closest_hit_launches.launches
     check(ch_launches > 0, 'intersect_mesh never launched the walker kernel')
     print('ray intersections/s, full demo, %d center rays: %s; mean %.0f '
-          '(%s)' % (nrays, ['%.0f' % r for r in ray_rates],
-                    ray_rates.mean(), card))
+          '(%s); %d kernel launches in %d intersect calls'
+          % (nrays, ['%.0f' % r for r in ray_rates], ray_rates.mean(), card,
+             ch_launches, len(ray_rates) + 1))
     nphotons = NPHOTONS
     w_launches = {}
     for label, number, kw in (('on-deck od_slots=1', 3, dict(od_slots=1)),
@@ -381,14 +611,17 @@ def main():
             w = min(fused.DEFAULT_WIDTH, nphotons)
             how = ('%d service passes, %d photon-steps, %d lane-iterations'
                    ' (holding share %.4f, photon-steps per lane-iteration '
-                   '%.4f)' % (st[0], st[1], st[2],
-                              st[2] / (st[0] * w * fused.SERVICE_EVERY),
-                              st[1] / st[2]))
+                   '%.4f); %d window launches in %d propagations'
+                   % (st[0], st[1], st[2],
+                      st[2] / (st[0] * w * fused.SERVICE_EVERY),
+                      st[1] / st[2], w_launches[od_slots], number + 1))
         else:
             ch_launches += mbvh_walk.closest_hit_launches.launches
             check(mbvh_walk.closest_hit_launches.launches > 0,
                   'the step loop never launched the walker kernel')
-            how = '%d steps' % gp.last_steps
+            how = '%d steps; %d closest-hit launches in %d propagations' \
+                % (gp.last_steps, mbvh_walk.closest_hit_launches.launches,
+                   number + 1)
         print('photons propagated/s, full demo, %d isotropic 400 nm '
               'photons, max_steps=100, %s: %s; mean %.0f (%s); %s; '
               'terminal %.5f' % (nphotons, label,
@@ -468,20 +701,24 @@ def main():
           % ct)
 
     print('nvidia-smi name, power.limit: %s' % card)
-    entries = [{
+    def timing(ms_, plain, b):
+        return {'ms': ms_, 'plain_ms': plain, 'bound_ms': b['bound'][0],
+                'bound_by': b['bound'][1], 'library_ms': None,
+                'share': b['bound'][0] / ms_}
+
+    entries = [dict({
         'name': 'mbvh_closest_hit', 'route': 'cuda',
         'source': 'chroma_tpu_torch/csrc/mbvh_walk.cu',
         'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
-        'launches': ch_launches, 'max_abs_err': err, 'ms': ms,
-        'plain_ms': plain_ms}]
+        'launches': ch_launches, 'max_abs_err': err},
+        **timing(ms, plain_ms, ch_bound))]
     for od_slots in (1, 2):
-        entries.append({
+        entries.append(dict({
             'name': 'mbvh_walk_window_od%d' % od_slots, 'route': 'cuda',
             'source': 'chroma_tpu_torch/csrc/mbvh_walk_window.cu',
             'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
             'launches': w_launches[od_slots],
-            'max_abs_err': werr[od_slots], 'ms': wms[od_slots][0],
-            'plain_ms': wms[od_slots][1]})
+            'max_abs_err': werr[od_slots]}, **timing(*wms[od_slots])))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

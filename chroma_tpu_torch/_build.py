@@ -4,8 +4,8 @@
 source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes) under ``chroma_tpu_torch/_build/``.  The library
-is named by a digest of the flags and of every file under ``csrc/``
-(headers included).  Kernels take raw device pointers and PyTorch's
+is named by a digest of the flags and of every CUDA source and header
+under ``csrc/``.  Kernels take raw device pointers and PyTorch's
 current CUDA stream; each C entry point returns the ``cudaError_t`` of
 its launch.
 
@@ -55,10 +55,11 @@ def nvcc_path():
 
 
 def _digest():
-    """Digest of the flags and of every file under csrc/ (name and
-    content), so an edited header rebuilds too."""
+    """Digest of the flags and of every .cu and .cuh file under csrc/
+    (name and content), so an edited header rebuilds too."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC_DIR, '*'))):
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu'))
+                       + glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
         h.update(os.path.basename(path).encode())
         with open(path, 'rb') as f:
             h.update(f.read())
@@ -68,14 +69,19 @@ def _digest():
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile the sources (once per content hash).  Returns
-    (library path, compiler log).  Raises on failure."""
+    (library path, compiler log; the log of the build that made the
+    library, kept beside it).  Raises on failure."""
     srcs = sources()
     if not srcs:
         raise RuntimeError('no CUDA sources under %s' % CSRC_DIR)
     digest = _digest()
     out = os.path.join(BUILD_DIR, 'libchroma_tpu_torch_%s.so' % digest)
     if os.path.exists(out):
-        return out, ''
+        try:
+            with open(out + '.log') as f:
+                return out, f.read()
+        except OSError:
+            return out, ''
     work = os.path.join(BUILD_DIR, '%s.%d' % (digest, os.getpid()))
     os.makedirs(work, exist_ok=True)
     nvcc = nvcc_path()
@@ -102,6 +108,9 @@ def build():
     if proc.returncode != 0:
         raise RuntimeError('nvcc link failed (%d):\n%s'
                            % (proc.returncode, log))
+    with open(tmp + '.log', 'w') as f:
+        f.write(log)
+    os.replace(tmp + '.log', out + '.log')
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
     return out, log

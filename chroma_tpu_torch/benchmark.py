@@ -9,9 +9,9 @@ import time
 import numpy as np
 import torch
 
-from chroma_tpu.event import Photons
-from chroma_tpu.sample import uniform_sphere
-from chroma_tpu.tools import argsort_direction
+from chroma_tpu_torch.event import Photons
+from chroma_tpu_torch.sample import uniform_sphere
+from chroma_tpu_torch.tools import argsort_direction
 from chroma_tpu_torch import gpu
 from chroma_tpu_torch.ops import mbvh as mbvh_ops
 

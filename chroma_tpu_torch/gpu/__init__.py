@@ -1,16 +1,17 @@
 """Device-runtime layer: GPUGeometry, GPUDetector, GPUPhotons, RNGStream.
 
 Counterpart of chroma_tpu/gpu/__init__.py (reference: chroma/gpu/*),
-with the same class names and call shapes.  Every class takes an
-explicit ``device``; ``default_device()`` (CUDA when present) is only
-the default of the constructors.  Photon batches are not padded: the
+with the same class names and call shapes.  Every class takes a
+``device``; its default, ``default_device()``, is the CUDA card, and
+where there is none the constructors raise: the CPU is used only when
+the caller names it.  Photon batches are not padded: the
 JAX package pads to powers of two for XLA's compile cache, which eager
 PyTorch does not need.
 """
 import numpy as np
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry, pack_detector
 from chroma_tpu_torch.ops import fused as fused_ops
 from chroma_tpu_torch.ops import photon as photon_ops
@@ -23,7 +24,17 @@ __all__ = ['GPUGeometry', 'GPUDetector', 'GPUPhotons', 'GPUDaq',
 
 
 def default_device():
-    return torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    """The CUDA card; raises where there is none (pass ``device='cpu'``
+    to run the plain PyTorch versions on the CPU)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'chroma_tpu_torch: no CUDA device is available; pass '
+            "device='cpu' to run on the CPU")
+    return torch.device('cuda')
+
+
+def _device(device):
+    return torch.device(device if device is not None else default_device())
 
 
 class RNGStream(object):
@@ -31,8 +42,7 @@ class RNGStream(object):
     reference's per-thread curand states)."""
 
     def __init__(self, seed=0, device=None):
-        device = torch.device(device if device is not None
-                              else default_device())
+        device = _device(device)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(seed))
 
@@ -46,8 +56,7 @@ class GPUGeometry(object):
     """Packed device geometry (reference: chroma/gpu/geometry.py)."""
 
     def __init__(self, geometry, device=None, wavelengths=None, times=None):
-        self.device = torch.device(device if device is not None
-                                   else default_device())
+        self.device = _device(device)
         self.geometry = geometry
         self.geom = pack_geometry(geometry, self.device,
                                   wavelengths=wavelengths, times=times)
@@ -60,8 +69,7 @@ class GPUDetector(GPUGeometry):
     chroma/gpu/detector.py)."""
 
     def __init__(self, detector, device=None, wavelengths=None, times=None):
-        self.device = torch.device(device if device is not None
-                                   else default_device())
+        self.device = _device(device)
         self.geometry = detector
         self.geom, self.det = pack_detector(detector, self.device,
                                             wavelengths=wavelengths,
@@ -75,8 +83,7 @@ class GPUDetector(GPUGeometry):
         package); returns None on a miss.  ``save_table_cache`` fills
         it."""
         from chroma_tpu_torch.ops.table_cache import load_tables
-        device = torch.device(device if device is not None
-                              else default_device())
+        device = _device(device)
         hit = load_tables(name, device)
         if hit is None:
             return None
@@ -100,8 +107,7 @@ class GPUPhotons(object):
 
     def __init__(self, photons, device=None, ncopies=1, copy_flags=True,
                  copy_triangles=True, copy_weights=True):
-        device = torch.device(device if device is not None
-                              else default_device())
+        device = _device(device)
         state = photon_ops.upload_photons(photons, device)
         if not copy_flags:
             state['flags'] = torch.zeros_like(state['flags'])

@@ -9,7 +9,7 @@ depend on the order of the scatter, so the result is exact.
 import numpy as np
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops.geometry_pack import sample_icdf
 from chroma_tpu_torch.ops.propagate import i32
 

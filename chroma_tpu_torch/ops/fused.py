@@ -27,7 +27,7 @@ dynamic ``service_frac`` cadence, ``PHYS_BARRIER`` and the
 """
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops import mbvh, mbvh_walk
 from chroma_tpu_torch.ops.propagate import (NDRAWS, TERMINAL, i32,
                                             physics_update)
@@ -99,14 +99,14 @@ def _seed_walk(tables, p, need):
 
 def _make_lane(packed, tables, w, od_slots):
     """Lane state holding pool photons [0, w): the photon rows ``pk``,
-    their step counts, the walker state ``W`` (lane-minor storage, as
+    their step counts, the walker state ``W`` (``window_layout``, as
     the window kernel reads it) with empty on-deck and park fields, and
     empty on-deck photon slots."""
     pk = packed[:w].clone()
     dev = pk.device
     W = _seed_walk(tables, pk, _p_posdir_ok(pk))
     W.update(mbvh_walk.ondeck_empty(w, od_slots, dev))
-    lane = dict(pk=pk, W={k: mbvh_walk.lane_minor(v) for k, v in W.items()},
+    lane = dict(pk=pk, W=mbvh_walk.window_layout(W),
                 holding=torch.ones(w, dtype=torch.bool, device=dev),
                 step=torch.zeros(w, dtype=torch.int32, device=dev))
     for pre in ('odk', 'odk2')[:od_slots]:

@@ -1,8 +1,8 @@
 """Pack a flattened Geometry/Detector into device tables of torch tensors.
 
-Counterpart of chroma_tpu/ops/geometry_pack.py.  The packing is numpy
-(and reuses the JAX package's numpy-only MBVH builder and BVH cache), so
-both packages build identical tables; only the final upload differs.
+Counterpart of chroma_tpu/ops/geometry_pack.py.  The packing is numpy,
+with the port's own copy of the MBVH builder (bvh/mbvh.py), so both
+packages build identical tables; only the final upload differs.
 uint32 tables (material codes, colors, MBVH rows) are held as int32
 tensors with the same bits, because torch has no unsigned right shift
 on the CPU: every consumer masks after each shift.
@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from chroma_tpu.geometry import standard_wavelengths
+from chroma_tpu_torch.geometry import standard_wavelengths
 
 DEFAULT_TIME_GRID = np.arange(0.0, 1000.0, 0.05, dtype=np.float32)
 N_ICDF = 2048
@@ -180,7 +180,7 @@ def sample_icdf(icdf, u):
 
 def _want_instancing(geometry, instancing):
     """Explicit argument, then CHROMA_TPU_INSTANCING, then auto."""
-    from chroma_tpu.bvh.mbvh import instancing_gain
+    from chroma_tpu_torch.bvh.mbvh import instancing_gain
     if instancing is None:
         env = os.environ.get('CHROMA_TPU_INSTANCING')
         if env is not None:
@@ -191,12 +191,12 @@ def _want_instancing(geometry, instancing):
 
 
 def _load_or_build_mbvh(geometry, material_codes, instancing=None):
-    """Build (or load from the shared BVH cache) the wide fat-row MBVH,
+    """Build (or load from the port's BVH cache) the wide fat-row MBVH,
     under the same cache name as the JAX package."""
-    from chroma_tpu.bvh.mbvh import (build_mbvh, build_mbvh_instanced,
-                                     BRANCH, ROW_WIDTH, LAYOUT_VERSION,
-                                     TARGET_DEGREE, builder_tag)
-    from chroma_tpu.cache import Cache
+    from chroma_tpu_torch.bvh.mbvh import (build_mbvh, build_mbvh_instanced,
+                                           BRANCH, ROW_WIDTH, LAYOUT_VERSION,
+                                           TARGET_DEGREE, builder_tag)
+    from chroma_tpu_torch.cache import Cache
     use_inst = _want_instancing(geometry, instancing)
     name = 'mbvh%d_%d_d%d_v%d_%s_%s' % (BRANCH, ROW_WIDTH, TARGET_DEGREE,
                                         LAYOUT_VERSION, builder_tag(),

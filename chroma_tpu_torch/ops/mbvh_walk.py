@@ -6,7 +6,7 @@ The closest-hit walk computes what ``intersect_mesh_pallas`` computes:
 ``seed`` (the root's children slab-tested and the nearest one popped),
 ``walk_iter`` until no ray is active, then ``results``.
 
-* ``closest_hit_cuda`` launches csrc/mbvh_walk.cu: one thread per ray,
+* ``closest_hit_cuda`` launches csrc/mbvh_walk.cu: one warp per ray,
   each walk run to completion in one launch.
 * ``closest_hit_plain`` is vectorized torch with the same pending-code
   semantics, one iteration per loop trip over the rays still walking
@@ -19,7 +19,7 @@ True)`` over every lane of the fused driver (ops/fused.py): a walk that
 drains parks its results and restarts on the lane's on-deck ray within
 the same iteration (K3; K4 with a second slot).
 
-* ``walk_window_cuda`` launches csrc/mbvh_walk_window.cu: one thread per
+* ``walk_window_cuda`` launches csrc/mbvh_walk_window.cu: one warp per
   lane, the lane state in device memory across launches.
 * ``walk_window_plain`` is the same in vectorized torch, stepping only
   the lanes whose state can still change (a drained lane with no
@@ -28,9 +28,11 @@ the same iteration (K3; K4 with a second slot).
 State is lanes-first: ``tcodes`` (n, S, BRANCH) int32 holds the
 unbiased 16-bit entry codes of each pending level (slot s is tree level
 s + 1), with SENT = 65535 for absent or popped children.  The window's
-state tensors are lanes-first views of lane-minor storage
-(``lane_minor``): field word w of lane i lies at w * n + i, the layout
-the kernel reads coalesced.  ``walker_state_from_jax`` and
+state is stored as the kernel reads it (``window_layout``): ``tcodes``
+lanes-first and contiguous, so one level of one lane is 64 adjacent
+words for the lane's warp; every other field lane-minor (``lane_minor``:
+field word w of lane i at w * n + i), read once per warp.
+``walker_state_from_jax`` and
 ``walker_state_to_jax`` convert between this state and the JAX walker
 state (transposed, biased int16 codes), in numpy.
 """
@@ -39,12 +41,11 @@ import ctypes
 import numpy as np
 import torch
 
-from chroma_tpu.bvh.mbvh import (ROW_WIDTH, HDR_KIND, HDR_BASE, BOX_OFF,
-                                 QORIGIN_OFF, QSCALE_OFF, QVERT_OFF,
-                                 QVERT_WORDS_PER_COMP, TRI_ID_OFF, MAT_OFF,
-                                 BRANCH, IBOX_ORIGIN_OFF, IBOX_SCALE_OFF,
-                                 XFORM_OFF, TRI_BASE_OFF, KIND_CLUSTER,
-                                 KIND_LOCAL, KIND_ENTRY)
+from chroma_tpu_torch.bvh.mbvh import (
+    ROW_WIDTH, HDR_KIND, HDR_BASE, BOX_OFF, QORIGIN_OFF, QSCALE_OFF,
+    QVERT_OFF, QVERT_WORDS_PER_COMP, TRI_ID_OFF, MAT_OFF, BRANCH,
+    IBOX_ORIGIN_OFF, IBOX_SCALE_OFF, XFORM_OFF, TRI_BASE_OFF, KIND_CLUSTER,
+    KIND_LOCAL, KIND_ENTRY)
 
 SENT = 65535
 _EPS = 1e-6
@@ -52,7 +53,7 @@ _FLT_EPSILON = 1.1920929e-07
 # the row layout csrc/mbvh_walk.cu is compiled for
 KERNEL_BRANCH = 64
 KERNEL_ROW_WIDTH = 424
-KERNEL_MAX_DEPTH = 12     # MAX_SLOTS + 1 in csrc/mbvh_walk.cu
+KERNEL_MAX_DEPTH = 12     # MAX_SLOTS + 1 in csrc/mbvh_walk_core.cuh
 # walker-state entries a closest-hit walk iteration never changes
 _RAY_KEYS = ('org', 'dir', 'inv', 'noid', 'lht')
 # the window kernel's state fields, in the order of enum Key in
@@ -88,6 +89,19 @@ def nslots(depth):
     return max(depth - 1, 1)
 
 
+def check_kernel_layout(depth):
+    """Raise unless the kernels are compiled for the tables' row layout
+    and hold a tree of ``depth`` levels."""
+    if BRANCH != KERNEL_BRANCH or ROW_WIDTH != KERNEL_ROW_WIDTH:
+        raise ValueError('the walker kernel is compiled for BRANCH=%d, '
+                         'ROW_WIDTH=%d; the tables use %d, %d'
+                         % (KERNEL_BRANCH, KERNEL_ROW_WIDTH, BRANCH,
+                            ROW_WIDTH))
+    if not 1 <= depth <= KERNEL_MAX_DEPTH:
+        raise ValueError('MBVH depth %d outside [1, %d]'
+                         % (depth, KERNEL_MAX_DEPTH))
+
+
 def _f32(x):
     return x.view(torch.float32)
 
@@ -100,6 +114,24 @@ def lane_minor(t):
 
 def is_lane_minor(t):
     return t.movedim(0, -1).is_contiguous()
+
+
+# window-state fields stored lanes-first: one level of one lane is
+# contiguous, as the warp that walks the lane reads it
+LANES_FIRST_KEYS = ('tcodes',)
+
+
+def in_window_layout(key, t):
+    return t.is_contiguous() if key in LANES_FIRST_KEYS \
+        else is_lane_minor(t)
+
+
+def window_layout(W):
+    """The window state ``W`` in the storage the window kernel reads:
+    ``tcodes`` lanes-first (contiguous), every other field lane-minor
+    (copied).  Shapes and values are unchanged."""
+    return {k: v.contiguous() if k in LANES_FIRST_KEYS else lane_minor(v)
+            for k, v in W.items()}
 
 
 def state_fields(depth, instanced, od_slots):
@@ -358,17 +390,41 @@ def results(W):
                 material_code=W['mat'], incomplete=W['act'])
 
 
+def count_rows(work, rows, ptr):
+    """Add the rows ``ptr`` that walks process to the tally ``work``:
+    rows and child slots by kind, instance entries, and which rows were
+    read.  The walks' results do not depend on it; chip_smoke.py counts
+    a kernel's data-dependent work with it."""
+    hdr = rows[ptr, HDR_KIND]
+    cluster = (hdr & KIND_CLUSTER) != 0
+    count = ((hdr >> 8) & 0xFFFFFF).long()
+    for key, v in (('cluster_rows', cluster.sum()),
+                   ('internal_rows', (~cluster).sum()),
+                   ('cluster_slots', count[cluster].sum()),
+                   ('internal_slots', count[~cluster].sum()),
+                   ('entry_rows', ((hdr & KIND_ENTRY) != 0).sum())):
+        work[key] = work.get(key, 0) + int(v)
+    if 'visited' not in work:
+        work['visited'] = torch.zeros(rows.shape[0], dtype=torch.bool,
+                                      device=rows.device)
+    work['visited'][ptr] = True
+
+
 def closest_hit_plain(rows, org, dirv, lht, active, sq, depth, instanced,
-                      max_iters):
+                      max_iters, work=None):
     """Plain PyTorch walk (any device).  Same arguments and results as
-    ``closest_hit_cuda``."""
+    ``closest_hit_cuda``; ``work``, a dict, if given tallies the rows
+    the walks processed (``count_rows``)."""
     W = seed(rows, depth, instanced, sq, org, dirv, lht, active)
     for _ in range(max_iters):
         idx = torch.nonzero(W['act']).squeeze(1)
         if idx.numel() == 0:
             break
         sub = {k: v[idx] for k, v in W.items()}
-        sub = walk_iter(rows[sub['ptr'].long()], sub, depth, instanced, sq)
+        ptr = sub['ptr'].long()
+        if work is not None:
+            count_rows(work, rows, ptr)
+        sub = walk_iter(rows[ptr], sub, depth, instanced, sq)
         for k, v in sub.items():
             if k not in _RAY_KEYS:
                 W[k].index_copy_(0, idx, v)
@@ -383,11 +439,7 @@ def closest_hit_cuda(rows, org, dirv, lht, active, sq, depth, instanced,
     value.  Returns dict(triangle, distance, normal, material_code,
     incomplete)."""
     from chroma_tpu_torch import _build
-    if BRANCH != KERNEL_BRANCH or ROW_WIDTH != KERNEL_ROW_WIDTH:
-        raise ValueError('the walker kernel is compiled for BRANCH=%d, '
-                         'ROW_WIDTH=%d; the tables use %d, %d'
-                         % (KERNEL_BRANCH, KERNEL_ROW_WIDTH, BRANCH,
-                            ROW_WIDTH))
+    check_kernel_layout(depth)
     n = org.shape[0]
     dev = org.device
     for name, t, dtype, shape in (
@@ -403,9 +455,6 @@ def closest_hit_cuda(rows, org, dirv, lht, active, sq, depth, instanced,
                              % (name, dtype, shape, t.dtype, tuple(t.shape)))
         if not t.is_contiguous():
             raise ValueError('%s must be contiguous' % name)
-    if not 1 <= depth <= KERNEL_MAX_DEPTH:
-        raise ValueError('MBVH depth %d outside [1, %d]'
-                         % (depth, KERNEL_MAX_DEPTH))
     lib = _build.library()
     out = dict(triangle=torch.empty(n, dtype=torch.int32, device=dev),
                distance=torch.empty(n, dtype=torch.float32, device=dev),
@@ -417,8 +466,7 @@ def closest_hit_cuda(rows, org, dirv, lht, active, sq, depth, instanced,
         err = lib.mbvh_closest_hit(
             rows.data_ptr(), org.data_ptr(), dirv.data_ptr(),
             lht.data_ptr(), active.data_ptr(), n, float(sq), int(depth),
-            int(bool(instanced)), int(max_iters),
-            out['triangle'].data_ptr(), out['distance'].data_ptr(),
+            int(bool(instanced)), int(max_iters), out['triangle'].data_ptr(), out['distance'].data_ptr(),
             out['normal'].data_ptr(), out['material_code'].data_ptr(),
             out['incomplete'].data_ptr(), stream)
     if err != 0:
@@ -574,7 +622,7 @@ def walk_iter_ondeck(row, W, depth, instanced, sq, od_slots, rbase, rcount,
 
 def random_window_state(rows, depth, instanced, sq, n, od_slots,
                         rng_seed):
-    """A seeded on-deck window state in lane-minor storage, for holding
+    """A seeded on-deck window state in ``window_layout``, for holding
     the window kernel against its plain version: walks from rays near
     the origin, ~10% of lanes inactive, an on-deck ray on ~2/3 of the
     lanes and (two slots) a second one on ~2/5 (only where the first is
@@ -588,17 +636,28 @@ def random_window_state(rows, depth, instanced, sq, n, od_slots,
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
 
-    no_lht = torch.full((n,), -1, dtype=torch.int32, device=dev)
     org, dirv = rays()
     active = torch.from_numpy(rng.rand(n) > 0.1).to(dev)
-    W = seed(rows, depth, instanced, sq, org, dirv, no_lht, active)
-    W.update(ondeck_empty(n, od_slots, dev))
+    ondeck = []
     valid = rng.rand(n) < 0.67
-    for slot in range(1, od_slots + 1):
-        W.update(od_slot_seed(*rays(), no_lht.clone(),
-                              torch.from_numpy(valid).to(dev), slot))
+    for slot in range(od_slots):
+        ondeck.append(rays() + (torch.from_numpy(valid).to(dev),))
         valid = valid & (rng.rand(n) < 0.6)
-    return {k: lane_minor(v) for k, v in W.items()}
+    return window_state(rows, depth, instanced, sq, org, dirv, active,
+                        ondeck)
+
+
+def window_state(rows, depth, instanced, sq, org, dirv, active, ondeck):
+    """An on-deck window state in ``window_layout``: walks seeded from
+    rays ``org``, ``dirv`` (n, 3) where ``active``, and one on-deck slot
+    for each (org, dir, valid) of ``ondeck``; no last-hit triangles."""
+    n = org.shape[0]
+    no_lht = torch.full((n,), -1, dtype=torch.int32, device=org.device)
+    W = seed(rows, depth, instanced, sq, org, dirv, no_lht, active)
+    W.update(ondeck_empty(n, len(ondeck), org.device))
+    for slot, (o, d, valid) in enumerate(ondeck, 1):
+        W.update(od_slot_seed(o, d, no_lht.clone(), valid, slot))
+    return window_layout(W)
 
 
 def _may_change(W, od_slots):
@@ -613,9 +672,11 @@ def _may_change(W, od_slots):
 
 
 def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
-                      rbase, rcount, root_lohi):
+                      rbase, rcount, root_lohi, work=None):
     """``n_iters`` on-deck iterations over every lane of ``W``, in place
-    (any device).  Same arguments as ``walk_window_cuda``."""
+    (any device).  Same arguments as ``walk_window_cuda``; ``work``, a
+    dict, if given tallies the rows processed (``count_rows``), the
+    restart seeds (``seeds``) and the lanes that changed (``changed``)."""
     for _ in range(n_iters):
         idx = torch.nonzero(_may_change(W, od_slots)).squeeze(1)
         if idx.numel() == 0:
@@ -624,6 +685,13 @@ def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
         new = walk_iter_ondeck(rows[sub['ptr'].long()], sub, depth,
                                instanced, sq, od_slots, rbase, rcount,
                                root_lohi)
+        if work is not None:
+            count_rows(work, rows, sub['ptr'][sub['act']].long())
+            swapped = ((new['pad'] & ~sub['pad']) & 5) != 0
+            work['seeds'] = work.get('seeds', 0) + int(swapped.sum())
+            if 'changed' not in work:
+                work['changed'] = torch.zeros_like(W['act'])
+            work['changed'][idx] = True
         for k, v in new.items():
             if v is not sub[k]:
                 W[k].index_copy_(0, idx, v)
@@ -635,17 +703,10 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
     """Launch csrc/mbvh_walk_window.cu on CUDA tensors: ``n_iters``
     on-deck iterations over every lane of ``W``, in place.  ``W`` holds
     the fields of ``state_fields(depth, instanced, od_slots)`` in
-    lane-minor storage; ``rows`` (R, ROW_WIDTH) int32; ``root_lohi``
+    ``window_layout``; ``rows`` (R, ROW_WIDTH) int32; ``root_lohi``
     (6 * BRANCH,) f32; ``sq`` the entry-code scale as a float32 value."""
     from chroma_tpu_torch import _build
-    if BRANCH != KERNEL_BRANCH or ROW_WIDTH != KERNEL_ROW_WIDTH:
-        raise ValueError('the walker kernel is compiled for BRANCH=%d, '
-                         'ROW_WIDTH=%d; the tables use %d, %d'
-                         % (KERNEL_BRANCH, KERNEL_ROW_WIDTH, BRANCH,
-                            ROW_WIDTH))
-    if not 1 <= depth <= KERNEL_MAX_DEPTH:
-        raise ValueError('MBVH depth %d outside [1, %d]'
-                         % (depth, KERNEL_MAX_DEPTH))
+    check_kernel_layout(depth)
     if od_slots not in (1, 2):
         raise ValueError('od_slots must be 1 or 2, got %r' % (od_slots,))
     dev = rows.device
@@ -674,9 +735,9 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
             raise ValueError('state %s must be %s %s, got %s %s'
                              % (k, dtype, (n,) + shape, t.dtype,
                                 tuple(t.shape)))
-        if not is_lane_minor(t):
-            raise ValueError('state %s must be lane-minor (lane_minor())'
-                             % k)
+        if not in_window_layout(k, t):
+            raise ValueError('state %s is not in the window layout '
+                             '(window_layout())' % k)
         ptrs.append(t.data_ptr())
     lib = _build.library()
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -684,8 +745,7 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mbvh_walk_window(
             rows.data_ptr(), arr, len(ptrs), n, float(sq), int(depth),
-            int(bool(instanced)), int(od_slots), int(n_iters), int(rbase),
-            int(rcount), root_lohi.data_ptr(), stream)
+            int(bool(instanced)), int(od_slots), int(n_iters), int(rbase), int(rcount), root_lohi.data_ptr(), stream)
     if err != 0:
         raise RuntimeError('mbvh_walk_window launch failed: cudaError %d'
                            % err)
@@ -705,7 +765,7 @@ _BIAS = 32768
 
 def walker_state_from_jax(Wj, depth, instanced, od_slots=0, device='cpu'):
     """JAX walker-state dict (numpy arrays; the on-deck keys when
-    ``od_slots``) -> the port's lanes-first state in lane-minor storage.
+    ``od_slots``) -> the port's lanes-first state in ``window_layout``.
     ``instanced`` decides whether the instance registers are kept."""
     S = nslots(depth)
     rays = np.asarray(Wj['rays'], np.float32)
@@ -734,8 +794,8 @@ def walker_state_from_jax(Wj, depth, instanced, od_slots=0, device='cpu'):
                   pk + '_dist': p[0], pk + '_nrm': p[1:4].T,
                   pk + '_tri': p[4].view(np.int32),
                   pk + '_mat': p[5].view(np.int32)})
-    return {k: lane_minor(torch.from_numpy(np.array(v)).to(device))
-            for k, v in W.items()}
+    return window_layout({k: torch.from_numpy(np.array(v)).to(device)
+                          for k, v in W.items()})
 
 
 def walker_state_to_jax(W, depth, od_slots=0):

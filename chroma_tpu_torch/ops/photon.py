@@ -10,14 +10,14 @@ photons are still alive.
 import numpy as np
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops.propagate import (NDRAWS, alive_mask,
                                             make_photon_state,
                                             propagate_step)
 
 
 def upload_photons(photons, device):
-    """chroma_tpu.event.Photons -> SoA state dict on ``device``."""
+    """event.Photons -> SoA state dict on ``device``."""
     return make_photon_state(
         pos=photons.pos, dir=photons.dir, pol=photons.pol,
         wavelength=photons.wavelengths, t=photons.t,
@@ -29,7 +29,7 @@ def upload_photons(photons, device):
 
 
 def download_photons(state):
-    """SoA state dict -> chroma_tpu.event.Photons (flags and evidx back
+    """SoA state dict -> event.Photons (flags and evidx back
     to uint32)."""
     def get(k):
         return state[k].cpu().numpy()

@@ -18,7 +18,7 @@ WLS, dichroic and thin-film surfaces) raise NotImplementedError.
 """
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops import mbvh
 from chroma_tpu_torch.ops.intersect import dot, cross, norm, normalize
 

@@ -13,8 +13,8 @@ import os
 
 import numpy as np
 
-from chroma_tpu.bvh.mbvh import (LAYOUT_VERSION, BRANCH, ROW_WIDTH,
-                                 TARGET_DEGREE, builder_tag)
+from chroma_tpu_torch.bvh.mbvh import (LAYOUT_VERSION, BRANCH, ROW_WIDTH,
+                                       TARGET_DEGREE, builder_tag)
 from chroma_tpu_torch.ops.geometry_pack import (
     GeometryTables, DetectorTables, U32_FIELDS, array_fields, static_fields,
     tables_from_numpy)

@@ -9,7 +9,7 @@ driver's pack, retire or unpack plumbing corrupts them.
 import numpy as np
 import torch
 
-from chroma_tpu import event
+from chroma_tpu_torch import event
 from chroma_tpu_torch.ops import fused
 
 

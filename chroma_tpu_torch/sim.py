@@ -11,8 +11,8 @@ import time
 import numpy as np
 import torch
 
-from chroma_tpu import event
-from chroma_tpu import itertoolset
+from chroma_tpu_torch import event
+from chroma_tpu_torch import itertoolset
 from chroma_tpu_torch import gpu
 from chroma_tpu_torch.ops import daq as daq_ops
 
@@ -26,7 +26,7 @@ class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
                  device=None, driver='fused'):
         """``detector``: a Geometry/Detector (flattened here if needed)
-        or a geometry string for chroma_tpu.loader.  Photon generation
+        or a geometry string for chroma_tpu_torch.loader.  Photon generation
         from vertices (``geant4_processes`` > 0) is not ported.
         ``driver`` is ``GPUPhotons.propagate``'s: 'fused' (the on-deck
         lane-pool driver) or 'steps' (the step loop)."""
@@ -36,13 +36,13 @@ class Simulation(object):
                 'not ported to chroma_tpu_torch; pass Photons or Events '
                 'with photons_beg')
         if isinstance(detector, str):
-            from chroma_tpu.loader import load_geometry_from_string
+            from chroma_tpu_torch.loader import load_geometry_from_string
             detector = load_geometry_from_string(detector)
         detector.flatten()
         self.detector = detector
         self.driver = driver
-        self.device = torch.device(device if device is not None
-                                   else gpu.default_device())
+        self.device = torch.device(device) if device is not None \
+            else gpu.default_device()
         self.seed = pick_seed() if seed is None else seed
         np.random.seed(self.seed)
         if hasattr(detector, 'num_channels'):

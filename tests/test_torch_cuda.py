@@ -92,6 +92,78 @@ def test_walk_kernel_instanced_tiny(dev):
     _assert_bit_equal(g, o.contiguous(), d)
 
 
+def _tables(name, dev):
+    if name == 'sphere24':
+        return pack_geometry(host.mesh_geometry(
+            host.make.sphere(50.0, nsteps=24)), dev)
+    if name == 'ties':
+        return pack_geometry(host.tie_geometry(), dev)
+    if name == 'ties_instanced':
+        return pack_geometry(host.tie_geometry(), dev, instancing=True)
+    tiny = host.demo.tiny()
+    tiny.flatten()
+    return pack_geometry(tiny, dev)
+
+
+# ray counts at the edges of a warp (one warp walks one ray) and of a
+# block (8 rays): 1001 is not a multiple of the block
+GROUP_EDGES = [1, 31, 33, 129, 1001]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['sphere24', 'tiny'])
+@pytest.mark.parametrize('n', GROUP_EDGES)
+def test_walk_kernel_group_edges(dev, name, n):
+    """Ragged ray counts through K1 (flat sphere) and K2 (demo.tiny)."""
+    g = _tables(name, dev)
+    _assert_bit_equal(g, *_rays(n, 100 + n, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['ties', 'ties_instanced', 'tiny'])
+@pytest.mark.parametrize('od_slots', [1, 2])
+def test_window_kernel_axis_rays(dev, name, od_slots):
+    """Six lanes walking along the axes (1/dir infinite on two axes),
+    restarting on axis-parallel on-deck rays: bit-equal to plain."""
+    g = _tables(name, dev)
+    depth, inst = int(g.mbvh_depth), bool(g.mbvh_instanced)
+    o, d = (torch.from_numpy(a).to(dev) for a in host.axis_rays())
+    every = torch.ones(6, dtype=torch.bool, device=dev)
+    k = mbvh_walk.window_state(
+        g.mbvh_rows, depth, inst, tmbvh.tquant_scale(g), o, d, every,
+        [(o, -d, every), (o, d.roll(2, 0), every)][:od_slots])
+    p = _clone_state(k)
+    seed_args = mbvh_walk.root_seed_args(g)
+    for iters in (17, 3000):
+        tmbvh.walk_window(g, k, iters, od_slots, *seed_args)
+        torch.cuda.synchronize()
+        tmbvh.walk_window(g, p, iters, od_slots, *seed_args, plain=True)
+        for key in k:
+            a, b = k[key], p[key]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (iters, key)
+    assert (k['pad'] & 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['ties', 'ties_instanced'])
+def test_walk_kernel_ties(dev, name):
+    """Twin triangles at equal distances and (instanced) two entries with
+    equal boxes, random and axis-parallel rays, and the last-hit skip of
+    a twin: the lowest-slot rule decides every tie, as in the plain
+    version."""
+    g = _tables(name, dev)
+    assert g.mbvh_instanced == (name == 'ties_instanced')
+    o, d = _rays(300, 8, dev)
+    first = _assert_bit_equal(g, o, d)['triangle']
+    assert (first >= 0).all()
+    _assert_bit_equal(g, o, d, lht=first)
+    ao, ad = host.axis_rays()
+    _assert_bit_equal(g, torch.from_numpy(ao).to(dev),
+                      torch.from_numpy(ad).to(dev))
+
+
 @pytest.mark.cuda
 def test_intersect_mesh_dispatches_to_kernel(dev):
     g = pack_geometry(host.mesh_geometry(host.make.sphere(50.0, nsteps=24)),
@@ -104,27 +176,22 @@ def test_intersect_mesh_dispatches_to_kernel(dev):
 
 # ---- the on-deck window kernel (K3, K4) and the driver around it ------
 
-def _window_tables(name, dev):
-    if name == 'sphere24':
-        return pack_geometry(host.mesh_geometry(
-            host.make.sphere(50.0, nsteps=24)), dev)
-    tiny = host.demo.tiny()
-    tiny.flatten()
-    return pack_geometry(tiny, dev)
-
-
 def _clone_state(W):
-    return {k: mbvh_walk.lane_minor(v.clone()) for k, v in W.items()}
+    return mbvh_walk.window_layout({k: v.clone() for k, v in W.items()})
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('name,n,od_slots', [
     ('sphere24', 256, 1), ('sphere24', 256, 2), ('tiny', 256, 1),
-    ('tiny', 256, 2), ('sphere24', 129, 2), ('tiny', 129, 1)])
+    ('tiny', 256, 2), ('sphere24', 129, 2), ('tiny', 129, 1),
+    ('ties', 256, 1), ('ties_instanced', 256, 2)]
+    + [(name, n, od_slots) for name in ('sphere24', 'tiny')
+       for n in (1, 31, 33, 1001) for od_slots in (1, 2)])
 def test_window_kernel_matches_plain(dev, name, n, od_slots):
     """A service window of 17 iterations, then a long window in which
-    every walk drains: every state field bit-equal after each."""
-    g = _window_tables(name, dev)
+    every walk drains: every state field bit-equal after each (ragged
+    lane counts at the warp and block edges, and the tie scenes)."""
+    g = _tables(name, dev)
     depth, inst = int(g.mbvh_depth), bool(g.mbvh_instanced)
     sq = tmbvh.tquant_scale(g)
     seed_args = mbvh_walk.root_seed_args(g)
@@ -144,7 +211,7 @@ def test_window_kernel_matches_plain(dev, name, n, od_slots):
                 a, b = a.view(torch.int32), b.view(torch.int32)
             assert torch.equal(a, b), (iters, key)
     assert not k['act'].any() and (k['lvl'] < 0).all()
-    assert ((k['pad'] & 1) != 0).any()
+    assert n < 32 or ((k['pad'] & 1) != 0).any()
 
 
 @pytest.mark.cuda
@@ -154,7 +221,7 @@ def test_ondeck_driver_kernel_matches_plain(dev, od_slots):
     plain version, same generator seed: the final photons bit-equal."""
     from chroma_tpu_torch import gpu
     from chroma_tpu_torch.ops import fused
-    g = _window_tables('tiny', dev)
+    g = _tables('tiny', dev)
     np.random.seed(4)
     ph = host.photon_bomb(8192, 400.0, (200.0, 0.0, 0.0)).photons_beg
     outs = []
@@ -177,6 +244,6 @@ def test_ondeck_driver_kernel_matches_plain(dev, od_slots):
 @pytest.mark.cuda
 def test_referee_terminal_passthrough_on_card(dev):
     from chroma_tpu_torch import referee
-    g = _window_tables('tiny', dev)
+    g = _tables('tiny', dev)
     for od_slots in (1, 2):
         assert referee.terminal_passthrough(g, od_slots=od_slots) == []

@@ -178,6 +178,30 @@ def test_cpu_tensors_take_the_plain_walker(sphere24):
             pgeom.mbvh_depth, pgeom.mbvh_instanced, 100)
 
 
+@pytest.mark.parametrize('depth,ok', [
+    (0, False), (1, True), (2, True), (4, True), (6, True), (7, True),
+    (11, True), (12, True), (13, False)])
+def test_kernels_hold_every_depth_up_to_max_levels(depth, ok):
+    """One kernel build holds MAX_SLOTS = 11 pending levels, so every
+    tree of depth 1..12 (MAX_LEVELS) launches it; the wrappers refuse
+    any other depth before building anything."""
+    assert mbvh_walk.KERNEL_MAX_DEPTH == tmbvh.MAX_LEVELS
+    if ok:
+        mbvh_walk.check_kernel_layout(depth)
+        return
+    with pytest.raises(ValueError, match='depth'):
+        mbvh_walk.check_kernel_layout(depth)
+    rows = torch.zeros((1, mbvh_walk.ROW_WIDTH), dtype=torch.int32)
+    with pytest.raises(ValueError, match='depth'):
+        mbvh_walk.closest_hit_cuda(
+            rows, torch.zeros((1, 3)), torch.ones((1, 3)),
+            torch.full((1,), -1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.bool), 1.0, depth, False, 10)
+    with pytest.raises(ValueError, match='depth'):
+        mbvh_walk.walk_window_cuda(rows, {}, 17, depth, False, 1.0, 1, 0, 0,
+                                   torch.zeros(6 * mbvh_walk.BRANCH))
+
+
 def test_nvcc_flags_keep_ieee_floats():
     """The kernel must build for Hopper with separate multiply and add
     roundings (bit-equal to the plain version) and never with fast math,

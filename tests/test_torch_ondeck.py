@@ -228,7 +228,7 @@ def test_converter_round_trip_is_exact(tiny):
     W = _np(_run_jax(jgeom, _jax_state(jgeom, 128, 2, seed=5), 40, 2))
     assert (W['uregs'][MP.U_PAD] & 4).any()
     port = mbvh_walk.walker_state_from_jax(W, int(jgeom.mbvh_depth), True, 2)
-    assert all(mbvh_walk.is_lane_minor(v) for v in port.values())
+    assert all(mbvh_walk.in_window_layout(k, v) for k, v in port.items())
     back = mbvh_walk.walker_state_to_jax(port, int(jgeom.mbvh_depth), 2)
     assert sorted(back) == sorted(W)
     for k in W:

@@ -27,9 +27,9 @@ NPHOTONS = 10000
 TIME_BINS = np.linspace(0.0, 40.0, 41)
 
 
-def _bombs(seed):
+def _bombs(seed, bomb=photon_bomb):
     np.random.seed(seed)
-    return [photon_bomb(NPHOTONS, 400.0, (200.0, 0.0, 0.0)).photons_beg
+    return [bomb(NPHOTONS, 400.0, (200.0, 0.0, 0.0)).photons_beg
             for _ in range(NEVENTS)]
 
 
@@ -49,9 +49,12 @@ def jax_events():
 
 
 def _port_events(driver):
+    """The same scene and photons, built with the port's own host layer
+    (the same numpy draws give the same photons)."""
+    from chroma_tpu_torch import host
     from chroma_tpu_torch.sim import Simulation
-    psim = Simulation(demo.tiny(), seed=21, device='cpu', driver=driver)
-    return list(psim.simulate(_bombs(5), run_daq=True,
+    psim = Simulation(host.demo.tiny(), seed=21, device='cpu', driver=driver)
+    return list(psim.simulate(_bombs(5, host.photon_bomb), run_daq=True,
                               keep_photons_end=True))
 
 
@@ -113,12 +116,17 @@ def test_simulate_step_driver_matches_jax(jax_events):
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a small propagation with DAQ (the
-    on-deck driver, one and two slots, and the step loop) must leave jax
-    out of sys.modules."""
+    """Importing every module of the port and running a small propagation
+    with DAQ (the on-deck driver, one and two slots, and the step loop)
+    through Simulation must leave jax and every module of the JAX
+    package chroma_tpu out of sys.modules."""
     code = '\n'.join([
-        'import sys',
+        'import importlib, pkgutil, sys',
         'import numpy as np',
+        'import chroma_tpu_torch',
+        'for m in pkgutil.walk_packages(chroma_tpu_torch.__path__,',
+        "                               'chroma_tpu_torch.'):",
+        '    importlib.import_module(m.name)',
         'from chroma_tpu_torch.sim import Simulation',
         'from chroma_tpu_torch import host',
         "sim = Simulation(host.demo.tiny(), seed=3, device='cpu')",
@@ -131,11 +139,9 @@ def test_port_never_imports_jax():
         '    p = gpu.GPUPhotons(ph, "cpu")',
         '    p.propagate(sim.gpu_geometry, sim.rng_states, **kw)',
         '    assert (p.last_stats is not None) != ("driver" in kw)',
-        "bad = sorted(m for m in sys.modules if m == 'jax'",
-        "             or m.startswith(('jax.', 'jaxlib', 'flax'))",
-        "             or m.startswith(('chroma_tpu.ops', 'chroma_tpu.gpu',",
-        "                              'chroma_tpu.sim',",
-        "                              'chroma_tpu.parallel')))",
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'chroma_tpu')",
+        "             or m.startswith(('jax.', 'jaxlib', 'flax',",
+        "                              'chroma_tpu.')))",
         "print('IMPORTED', bad)",
         'sys.exit(1 if bad else 0)',
     ])
@@ -144,6 +150,33 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert 'IMPORTED []' in proc.stdout
+
+
+@pytest.mark.parametrize('entry', [
+    'default_device', 'GPUPhotons', 'GPUGeometry', 'GPUDetector',
+    'from_table_cache', 'get_rng_states', 'Simulation'])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no card and no ``device`` argument every entry point raises
+    (naming device='cpu'); nothing falls back to the CPU."""
+    import torch
+    from chroma_tpu_torch import gpu, host
+    from chroma_tpu_torch.sim import Simulation
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    np.random.seed(1)
+    ph = host.photon_bomb(10, 400.0, (0.0, 0.0, 0.0)).photons_beg
+    geo = host.mesh_geometry(host.make.sphere(10.0, nsteps=8))
+    call = dict(default_device=gpu.default_device,
+                GPUPhotons=lambda: gpu.GPUPhotons(ph),
+                GPUGeometry=lambda: gpu.GPUGeometry(geo),
+                GPUDetector=lambda: gpu.GPUDetector(geo),
+                from_table_cache=lambda: gpu.GPUDetector.from_table_cache(
+                    'absent'),
+                get_rng_states=lambda: gpu.get_rng_states(seed=1),
+                Simulation=lambda: Simulation(geo, seed=1))[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    # the CPU, named, still works
+    assert gpu.GPUPhotons(ph, 'cpu').pos.device.type == 'cpu'
 
 
 def test_gpu_photons_copies_select_and_hits():
