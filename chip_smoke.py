@@ -32,7 +32,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      tests/golden/demo_full_pdf.npz;
   8. ``Simulation.simulate(run_daq=True)`` on demo.tiny through both
      drivers, pooled, against tests/golden/demo_tiny_pdf.npz and against
-     each other.
+     each other;
+  9. the gated physics models (bulk reemission, WLS, dichroic and
+     thin-film surfaces), each in its gate box (``host.gate_box``),
+     200,000 photons through ``GPUPhotons.propagate`` on the on-deck
+     driver: one-step outcome shares against the probabilities the scene
+     specifies, and the weighted detection sum (``use_weights=True``)
+     against the unweighted count, within 5 sigma;
+ 10. reconstruction on the full demo: one 100,000-photon bomb simulated
+     with DAQ, ``Likelihood.eval`` (nevals 2, nreps 4, ndaq 32) at the
+     true position and at its mirror image (both finite, the true one
+     lower); then ``benchmark.pdf``, ``benchmark.pdf_eval`` and
+     ``benchmark.load_photons`` (one warm-up, three timed: printed, not
+     gated) and the split of one ``eval_pdf`` into propagation, DAQ and
+     PDF accumulation;
+ 11. tracking mode: 10,000 photons on demo.tiny with ``track=True``; the
+     last snapshot equals the step loop's result from the same seed bit
+     for bit, one closest-hit launch a step.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
 
@@ -64,6 +80,7 @@ from chroma_tpu_torch import referee  # noqa: E402
 from chroma_tpu_torch.ops import fused  # noqa: E402
 from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
+from chroma_tpu_torch.likelihood import Likelihood  # noqa: E402
 from chroma_tpu_torch.ops.propagate import TERMINAL, i32  # noqa: E402
 from chroma_tpu_torch.sim import Simulation  # noqa: E402
 from tools import golden_config as G  # noqa: E402
@@ -72,6 +89,10 @@ GOLDEN_DIR = os.path.join(ROOT, 'tests', 'golden')
 NRAYS = 500000          # benchmark.intersect's batch
 NPHOTONS = 1 << 20      # bench.py's batch
 NDRIVER = 65536         # photons of the driver's kernel-against-plain run
+NGATE = 200000          # photons of each gate-box run
+NBOMB = 100000          # photons of the reconstructed event
+BOMB_POS = (5000.0, 0.0, 0.0)   # mm; the PMT sphere's radius is 14,000
+NTRACK = 10000          # photons of the tracking-mode run
 LONG_WINDOW = 4096      # iterations: every walk drains well before
 # ray counts at the edges of a warp (one warp walks one ray) and of a
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
@@ -700,7 +721,127 @@ def main():
     check(ct < 2.0, 'demo.tiny hit-time chi2/ndf between the drivers %.3f'
           % ct)
 
+    # ---- 9. the gated physics models on the card ----------------------
+    reset()
+    for gate in host.GATES:
+        t0 = time.time()
+        results = referee.gate_box_checks(gate, dev, n=NGATE, seed=50)
+        for what, observed, expected, sigma in results:
+            print('gate box %s: %.6g against %.6g (%+.2f sigma)'
+                  % (what, observed, expected, (observed - expected) / sigma))
+            check(abs(observed - expected) <= 5.0 * sigma,
+                  'gate box %s: %.6g against %.6g, sigma %.3g'
+                  % (what, observed, expected, sigma))
+        print('gate box %s: %d checks within 5 sigma, %.1f s'
+              % (gate, len(results), time.time() - t0), flush=True)
+    gate_launches = mbvh_walk.walk_window_launches[1].launches
+    check(gate_launches > 0, 'the gate boxes never launched the window '
+          'kernel')
+    print('gate boxes: %d window launches (flat tables)' % gate_launches)
+    w_launches[1] += gate_launches
+
+    # ---- 10. reconstruction on the full demo --------------------------
+    reset()
+    sim = Simulation(gg, seed=G.GOLDEN_SEED + 10)
+    np.random.seed(G.GOLDEN_SEED + 10)
+    ev = next(sim.simulate(
+        host.photon_bomb(NBOMB, G.WAVELENGTH, BOMB_POS).photons_beg,
+        run_daq=True))
+    nhit = int(np.asarray(ev.channels.hit).sum())
+    check(nhit > 100, 'the observed event hit only %d channels' % nhit)
+
+    def bombs(pos):
+        while True:
+            yield host.photon_bomb(NBOMB, G.WAVELENGTH, pos).photons_beg
+
+    lik = Likelihood(sim, event=ev)
+    nll = {}
+    for name, pos in (('true', BOMB_POS),
+                      ('mirrored', tuple(-x for x in BOMB_POS))):
+        t0 = time.time()
+        nll[name] = lik.eval(bombs(pos), nevals=2, nreps=4, ndaq=32)
+        torch.cuda.synchronize()
+        print('Likelihood.eval, full demo, %d-photon bomb at %s, %d hit '
+              'channels, nevals 2, nreps 4, ndaq 32, %s position: NLL %s in '
+              '%.2f s (%s)' % (NBOMB, BOMB_POS, nhit, name, nll[name],
+                               time.time() - t0, card), flush=True)
+        check(np.isfinite(nll[name].nominal_value)
+              and np.isfinite(nll[name].std_dev),
+              'Likelihood.eval at the %s position is not finite' % name)
+    check(nll['true'].nominal_value < nll['mirrored'].nominal_value,
+          'the true position does not fit better than its mirror image')
+
+    pdf_rates = benchmark.pdf(sim, number=4, nphotons=100000, nbins=128)
+    hitcount, hist = sim.gpu_pdf.get_pdfs()
+    check(hist.shape == (gg.nchannels, 128, 10)
+          and hist.sum() == hitcount.sum(), 'create_pdf histogram')
+    eval_rates = benchmark.pdf_eval(sim, number=4, nphotons=20000, nreps=2,
+                                    ndaq=32)
+    load_rates = benchmark.load_photons(dev, number=4, nphotons=NRAYS)
+    print('pdf events/s (create_pdf, 100,000 photons, 128 bins), full '
+          'demo: warm-up %.3f, then %s; mean %.3f (%s); %d channel readouts '
+          'inside the histogram of the last event'
+          % (pdf_rates[0], ['%.3f' % r for r in pdf_rates[1:]],
+             pdf_rates[1:].mean(), card, hitcount.sum()))
+    print('pdf_eval events/s (eval_pdf, 20,000 photons, nreps 2, ndaq 32), '
+          'full demo: warm-up %.3f, then %s; mean %.3f (%s)'
+          % (eval_rates[0], ['%.3f' % r for r in eval_rates[1:]],
+             eval_rates[1:].mean(), card))
+    print('photons loaded/s (%d photons): warm-up %.0f, then %s; mean %.0f '
+          '(%s)' % (NRAYS, load_rates[0], ['%.0f' % r for r in load_rates[1:]],
+                    load_rates[1:].mean(), card), flush=True)
+    photons = host.photon_bomb(20000, G.WAVELENGTH, (0, 0, 0)).photons_beg
+    with benchmark.eval_pdf_sections(dev) as seconds:
+        t0 = time.time()
+        hitcount, value, _ = sim.eval_pdf(
+            ev.channels, photons, 0.2, (-0.5, 999.5), 1, (-0.5, 9.5),
+            nreps=2, ndaq=32, min_bin_content=20)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+    check(np.isfinite(value).all() and hitcount.sum() > 0,
+          'eval_pdf values')
+    print('one eval_pdf (20,000 photons, nreps 2, ndaq 32), each section '
+          'between synchronizations: %.3f s; propagate %.3f s (%.3f), DAQ '
+          '%.3f s (%.3f), PDF accumulation %.3f s (%.3f), rest %.3f (%s)'
+          % (total, seconds['propagate'], seconds['propagate'] / total,
+             seconds['daq'], seconds['daq'] / total, seconds['pdf'],
+             seconds['pdf'] / total,
+             1.0 - sum(seconds.values()) / total, card))
+    rec_launches = mbvh_walk.walk_window_launches[1].launches
+    check(rec_launches > 0, 'the reconstruction path never launched the '
+          'window kernel')
+    print('reconstruction path: %d window launches (K3)' % rec_launches,
+          flush=True)
+    w_launches[1] += rec_launches
+
+    # ---- 11. tracking mode --------------------------------------------
+    reset()
+    np.random.seed(G.GOLDEN_SEED + 11)
+    ph = host.photon_bomb(NTRACK, G.WAVELENGTH, G.BOMB_POS).photons_beg
+    tiny_gg = gpu.GPUDetector(tiny, dev)
+    tracked = gpu.GPUPhotons(ph, dev)
+    ids, snaps = tracked.propagate(
+        tiny_gg, gpu.get_rng_states(seed=23, device=dev), track=True)
+    track_launches = mbvh_walk.closest_hit_launches.launches
+    check(track_launches == tracked.last_steps == len(snaps) - 1,
+          'tracking: %d closest-hit launches, %d steps, %d snapshots'
+          % (track_launches, tracked.last_steps, len(snaps)))
+    check(np.array_equal(snaps[0].pos, ph.pos) and len(snaps[-1]) == NTRACK,
+          'tracking: step 0 is not the upload')
+    stepped = gpu.GPUPhotons(ph, dev)
+    stepped.propagate(tiny_gg, gpu.get_rng_states(seed=23, device=dev),
+                      driver='steps')
+    compare_state(tracked.state, stepped.state,
+                  'tracking mode against the step loop')
+    print('tracking mode, demo.tiny, %d photons: %d steps, %d snapshots, '
+          '%d closest-hit launches (K2, one a step); last snapshot '
+          'bit-equal to the step loop' % (NTRACK, tracked.last_steps,
+                                          len(snaps), track_launches),
+          flush=True)
+    ch_launches += track_launches
+
     print('nvidia-smi name, power.limit: %s' % card)
+
     def timing(ms_, plain, b):
         return {'ms': ms_, 'plain_ms': plain, 'bound_ms': b['bound'][0],
                 'bound_by': b['bound'][1], 'library_ms': None,

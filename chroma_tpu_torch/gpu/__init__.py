@@ -12,29 +12,17 @@ import numpy as np
 import torch
 
 from chroma_tpu_torch import event
+from chroma_tpu_torch.device import default_device, resolve as _device
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry, pack_detector
 from chroma_tpu_torch.ops import fused as fused_ops
 from chroma_tpu_torch.ops import photon as photon_ops
 from chroma_tpu_torch.ops.daq import GPUDaq, GPUChannels, run_daq
-from chroma_tpu_torch.ops.propagate import i32
+from chroma_tpu_torch.ops.pdf import GPUPDF, GPUKernelPDF
+from chroma_tpu_torch.ops.propagate import alive_mask, i32, propagate_step
 
 __all__ = ['GPUGeometry', 'GPUDetector', 'GPUPhotons', 'GPUDaq',
-           'GPUChannels', 'RNGStream', 'get_rng_states', 'default_device',
-           'run_daq']
-
-
-def default_device():
-    """The CUDA card; raises where there is none (pass ``device='cpu'``
-    to run the plain PyTorch versions on the CPU)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            'chroma_tpu_torch: no CUDA device is available; pass '
-            "device='cpu' to run on the CPU")
-    return torch.device('cuda')
-
-
-def _device(device):
-    return torch.device(device if device is not None else default_device())
+           'GPUChannels', 'GPUPDF', 'GPUKernelPDF', 'RNGStream',
+           'get_rng_states', 'default_device', 'run_daq']
 
 
 class RNGStream(object):
@@ -145,11 +133,13 @@ class GPUPhotons(object):
         return self.state['pos']
 
     def propagate(self, gpu_geometry, rng_states, max_steps=100,
-                  scatter_first=0, driver='fused', width=None,
-                  service_every=None, od_slots=1):
+                  use_weights=False, scatter_first=0, track=False,
+                  driver='fused', width=None, service_every=None,
+                  od_slots=1):
         """Propagate every photon to termination or ``max_steps``
         (reference gpu/photon.py:192), drawing from the generator of
-        ``rng_states``.
+        ``rng_states``.  ``use_weights`` and ``scatter_first`` are
+        ``ops/propagate.physics_update``'s.
 
         ``driver='fused'`` (the default, as in the JAX package) runs the
         on-deck lane-pool driver ops/fused.propagate_fused with
@@ -157,15 +147,27 @@ class GPUPhotons(object):
         int32[4] stats [service passes, photon-steps, lane-iterations,
         0] in ``last_stats``.  ``driver='steps'`` runs the step loop
         ops/photon.propagate and keeps its step count in
-        ``last_steps``."""
+        ``last_steps``.
+
+        ``track=True`` ignores ``driver``: one ``propagate_step`` over
+        the whole batch per host step, and returns (step_photon_ids,
+        step_photons), a snapshot after every step with step 0 the
+        photons as uploaded.  Each step draws one (n, NDRAWS) block in
+        which a photon reads the row of its ``index``, as the step loop
+        does, so from one generator seed the last snapshot equals
+        ``driver='steps'`` bit for bit."""
         geom = gpu_geometry.geom
+        if track:
+            return self._propagate_tracking(geom, rng_states, max_steps,
+                                            scatter_first, use_weights)
         if driver == 'fused':
             self.state, stats = fused_ops.propagate_fused(
                 self.state, geom, fused_ops.uniform_draws(
                     rng_states.generator),
                 max_steps=max_steps, width=width,
                 service_every=service_every or fused_ops.SERVICE_EVERY,
-                od_slots=od_slots, scatter_first=scatter_first)
+                od_slots=od_slots, scatter_first=scatter_first,
+                use_weights=use_weights)
             self.last_stats = stats.cpu().numpy()
             self.last_steps = None
         elif driver == 'steps':
@@ -173,11 +175,30 @@ class GPUPhotons(object):
                                              len(self))
             self.state, self.last_steps = photon_ops.propagate(
                 self.state, geom, draws, max_steps=max_steps,
-                scatter_first=scatter_first)
+                scatter_first=scatter_first, use_weights=use_weights)
             self.last_stats = None
         else:
             raise ValueError("driver must be 'fused' or 'steps', got %r"
                              % (driver,))
+
+    def _propagate_tracking(self, geom, rng_states, max_steps,
+                            scatter_first, use_weights):
+        draws = photon_ops.uniform_draws(rng_states.generator, len(self))
+        ids = np.arange(len(self))
+        step_ids = [ids.copy()]
+        step_photons = [photon_ops.download_photons(self.state)]
+        steps = 0
+        while steps < max_steps and bool(
+                alive_mask(self.state['flags']).any()):
+            u = draws()[self.state['index']]
+            self.state = propagate_step(
+                self.state, geom, u, scatter_first if steps == 0 else 0,
+                use_weights=use_weights)
+            steps += 1
+            step_ids.append(ids.copy())
+            step_photons.append(photon_ops.download_photons(self.state))
+        self.last_steps, self.last_stats = steps, None
+        return step_ids, step_photons
 
     def get(self):
         """Download as Photons (copies concatenated)."""

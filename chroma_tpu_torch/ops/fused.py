@@ -32,13 +32,12 @@ from chroma_tpu_torch.ops import mbvh, mbvh_walk
 from chroma_tpu_torch.ops.propagate import (NDRAWS, TERMINAL, i32,
                                             physics_update)
 
-# Lane width: the threads an H100 keeps resident for the instanced
-# window kernel, rounded down to a power of two.  ptxas gives it 128
-# registers a thread, so 4 blocks of 128 threads fit an SM's 65,536
-# registers: 132 SMs x 512 = 67,584 threads; see PERF.md, Findings.
+# Lane width and walker iterations between service passes: the best
+# pair of the width x service_every sweep of
+# tools/profile_torch_propagate.py on the full demo (PERF.md, Findings).
+# The window kernel walks one lane per warp, so the width is a number of
+# warps, not of threads.
 DEFAULT_WIDTH = 65536
-# Walker iterations between service passes, from the sweep of
-# tools/profile_torch_propagate.py on the full demo; see PERF.md, Findings.
 SERVICE_EVERY = 17
 _NAN_FLAGS = i32(event.NO_HIT | event.NAN_ABORT)
 
@@ -117,7 +116,7 @@ def _make_lane(packed, tables, w, od_slots):
 
 
 def _service_ondeck(lane, pool, next_ptr, draws, tables, max_steps,
-                    scatter_first, od_slots):
+                    scatter_first, od_slots, use_weights=False):
     """One service pass over a lane set, in place on ``lane`` and
     ``pool``; returns the new refill pointer.
 
@@ -189,7 +188,7 @@ def _service_ondeck(lane, pool, next_ptr, draws, tables, max_steps,
     flags = torch.where(nan_mask, BIG['flags'] | _NAN_FLAGS, BIG['flags'])
     sf = torch.where(step2 == 0, scatter_first, 0)
     new = physics_update(BIG, RES, tables, u, flags, ready & ~bad, nan_mask,
-                         sf)
+                         sf, use_weights=use_weights)
     step2 = step2 + ready.to(torch.int32)
     # rows the pass did not advance keep their exact words
     PK2 = torch.where(ready[:, None], _pack(new), ALL)
@@ -313,7 +312,8 @@ def _service_ondeck(lane, pool, next_ptr, draws, tables, max_steps,
 
 def propagate_fused(state, tables, draws, max_steps=100, width=None,
                     service_every=SERVICE_EVERY, od_slots=1,
-                    scatter_first=0, plain_walker=False):
+                    scatter_first=0, use_weights=False,
+                    plain_walker=False):
     """Propagate every photon of ``state`` to termination or
     ``max_steps``, with the on-deck lane-pool driver at one chain.
 
@@ -322,7 +322,8 @@ def propagate_fused(state, tables, draws, max_steps=100, width=None,
     uniform block; ``width`` lanes (default ``DEFAULT_WIDTH``, at most
     the batch); ``od_slots`` 1 or 2 on-deck photons per lane;
     ``scatter_first`` (+1 force / -1 forbid) applies where a photon's
-    own step count is 0; ``plain_walker=True`` runs the walker window's
+    own step count is 0; ``use_weights`` is ``physics_update``'s;
+    ``plain_walker=True`` runs the walker window's
     plain version even on a card (ops/mbvh.walk_window).
 
     Returns ``(final_state, stats)``: the photons in input order with
@@ -355,7 +356,8 @@ def propagate_fused(state, tables, draws, max_steps=100, width=None,
                               holding.sum() * service_every,
                               torch.zeros_like(ready)])
         next_ptr = _service_ondeck(lane, pool, next_ptr, draws, tables,
-                                   max_steps, scatter_first, od_slots)
+                                   max_steps, scatter_first, od_slots,
+                                   use_weights)
     out = {k: v.clone() for k, v in _unpack(pool[:n]).items()}
     out['index'] = caller_index
     return out, stats.to(torch.int32)

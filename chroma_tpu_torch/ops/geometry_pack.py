@@ -17,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.geometry import standard_wavelengths
 
 DEFAULT_TIME_GRID = np.arange(0.0, 1000.0, 0.05, dtype=np.float32)
@@ -133,11 +134,13 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a, order='C')).to(device)
 
 
-def tables_from_numpy(geom_arrays, det_arrays, static, device='cpu'):
+def tables_from_numpy(geom_arrays, det_arrays, static, device=None):
     """Tables from numpy arrays keyed by field name (for example
     ``np.asarray`` of every field of the JAX package's tables).  Fields
     the port does not carry are ignored.  ``static`` maps 'geom' and
-    'det' to their static fields.  ``det_arrays`` may be None."""
+    'det' to their static fields.  ``det_arrays`` may be None.
+    ``device=None`` is the card (chroma_tpu_torch.device)."""
+    device = resolve(device)
     geom = GeometryTables(
         **{k: _tensor(geom_arrays[k], device)
            for k in array_fields(GeometryTables)},
@@ -380,17 +383,20 @@ def detector_arrays(detector):
     return a, dict(nchannels=int(detector.num_channels()))
 
 
-def pack_geometry(geometry, device='cpu', wavelengths=None, times=None,
+def pack_geometry(geometry, device=None, wavelengths=None, times=None,
                   instancing=None):
-    """GeometryTables on ``device`` for a flattened Geometry."""
+    """GeometryTables on ``device`` (default: the card) for a flattened
+    Geometry."""
+    device = resolve(device)
     arrays, static = pack_geometry_arrays(geometry, wavelengths, times,
                                           instancing)
     return tables_from_numpy(arrays, None, {'geom': static}, device)[0]
 
 
-def pack_detector(detector, device='cpu', wavelengths=None, times=None):
-    """(GeometryTables, DetectorTables) on ``device`` for a flattened
-    Detector."""
+def pack_detector(detector, device=None, wavelengths=None, times=None):
+    """(GeometryTables, DetectorTables) on ``device`` (default: the card)
+    for a flattened Detector."""
+    device = resolve(device)
     g_arrays, g_static = pack_geometry_arrays(detector, wavelengths, times)
     d_arrays, d_static = detector_arrays(detector)
     return tables_from_numpy(g_arrays, d_arrays,

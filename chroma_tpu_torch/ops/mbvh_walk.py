@@ -41,6 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
+from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.bvh.mbvh import (
     ROW_WIDTH, HDR_KIND, HDR_BASE, BOX_OFF, QORIGIN_OFF, QSCALE_OFF,
     QVERT_OFF, QVERT_WORDS_PER_COMP, TRI_ID_OFF, MAT_OFF, BRANCH,
@@ -506,8 +507,10 @@ def root_seed_args(tables):
         root_boxes_lohi(tables)
 
 
-def ondeck_empty(n, od_slots=1, device='cpu'):
-    """Empty on-deck and park fields: no on-deck ray, nothing parked."""
+def ondeck_empty(n, od_slots=1, device=None):
+    """Empty on-deck and park fields on ``device`` (default: the card):
+    no on-deck ray, nothing parked."""
+    device = resolve(device)
     out = {}
     for k, (dtype, shape) in state_fields(1, False, od_slots).items():
         if k.startswith(('od', 'park')):
@@ -763,10 +766,12 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
 _BIAS = 32768
 
 
-def walker_state_from_jax(Wj, depth, instanced, od_slots=0, device='cpu'):
+def walker_state_from_jax(Wj, depth, instanced, od_slots=0, device=None):
     """JAX walker-state dict (numpy arrays; the on-deck keys when
     ``od_slots``) -> the port's lanes-first state in ``window_layout``.
-    ``instanced`` decides whether the instance registers are kept."""
+    ``instanced`` decides whether the instance registers are kept;
+    ``device=None`` is the card."""
+    device = resolve(device)
     S = nslots(depth)
     rays = np.asarray(Wj['rays'], np.float32)
     u = np.ascontiguousarray(np.asarray(Wj['uregs'])).view(np.int32)

@@ -57,12 +57,14 @@ def uniform_draws(generator, n):
     return draw
 
 
-def propagate(state, tables, draws, max_steps=100, scatter_first=0):
+def propagate(state, tables, draws, max_steps=100, scatter_first=0,
+              use_weights=False):
     """Propagate all photons to termination or ``max_steps``.
 
     ``draws()`` returns the next (n, NDRAWS) draw block; it is called
     once per step.  ``scatter_first`` (+1 force / -1 forbid) applies on
-    step 0 only, as in the reference.  Returns (state, steps).
+    step 0 only, as in the reference; ``use_weights`` is
+    ``physics_update``'s.  Returns (state, steps).
     """
     state = dict(state)
     steps = 0
@@ -73,7 +75,8 @@ def propagate(state, tables, draws, max_steps=100, scatter_first=0):
         u = draws()[state['index'][live]]
         sub = {k: v[live] for k, v in state.items()}
         sub = propagate_step(sub, tables, u,
-                             scatter_first if steps == 0 else 0)
+                             scatter_first if steps == 0 else 0,
+                             use_weights=use_weights)
         for k, v in sub.items():
             state[k] = state[k].index_copy(0, live, v)
         steps += 1

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.bvh.mbvh import (LAYOUT_VERSION, BRANCH, ROW_WIDTH,
                                        TARGET_DEGREE, builder_tag)
 from chroma_tpu_torch.ops.geometry_pack import (
@@ -57,9 +58,10 @@ def save_tables(name, geom, det=None):
         json.dump(meta, f)
 
 
-def load_tables(name, device='cpu'):
-    """(geom, det) on ``device`` from the table cache, or None if the
-    entry is absent or stale."""
+def load_tables(name, device=None):
+    """(geom, det) on ``device`` (default: the card) from the table
+    cache, or None if the entry is absent or stale."""
+    device = resolve(device)
     d = _cache_dir(name)
     metafile = os.path.join(d, 'meta.json')
     if not os.path.exists(metafile):

@@ -1,10 +1,16 @@
-"""Referee check 1 of chroma_tpu/referee.py for the port: terminal
-passthrough.
+"""Checks of the port's physics that need no other package.
 
-Photons that are terminal on arrival must leave ``propagate_fused``
-with every word bit-exact: denormal floats, NaN payloads in pos/dir and
-every flag bit.  A float select or a flush-to-zero anywhere in the
-driver's pack, retire or unpack plumbing corrupts them.
+Referee check 1 of chroma_tpu/referee.py, terminal passthrough: photons
+that are terminal on arrival must leave ``propagate_fused`` with every
+word bit-exact: denormal floats, NaN payloads in pos/dir and every flag
+bit.  A float select or a flush-to-zero anywhere in the driver's pack,
+retire or unpack plumbing corrupts them.
+
+The gate-box checks (``gate_box_checks``): each gated physics model
+(bulk reemission, WLS, dichroic and thin-film surfaces) in its
+``host.gate_box`` scene through ``GPUPhotons.propagate``, its one-step
+outcome fractions against the probabilities the scene specifies, and
+weighted against unweighted detection.
 """
 import numpy as np
 import torch
@@ -61,3 +67,116 @@ def terminal_passthrough(tables, n=4096, width=1024, service_every=4,
                 got.view(np.uint8), v.view(np.uint8)):
             bad.append(k)
     return bad
+
+
+def _flag_fraction(flags, bit):
+    return float(((flags & np.uint32(bit)) != 0).mean())
+
+
+def gate_box_checks(gate, device, n=200000, seed=0):
+    """Statistical checks of one gated physics model on ``device``.
+
+    Returns a list of (what, observed, expected, sigma): the check holds
+    when |observed - expected| is within the caller's number of sigmas.
+    Photons go through ``GPUPhotons.propagate`` with its default, the
+    on-deck driver.
+
+    * one step (``max_steps=1``) of ``n`` beam photons onto the gate
+      surface (or through the scintillator): the share of photons with
+      each outcome flag against the probability the scene specifies
+      (binomial sigma), and the mean reemitted wavelength against the
+      spectrum's peak;
+    * ``n`` isotropic photons, 30 steps, unweighted and with
+      ``use_weights=True``: the sum of weights of the detected photons
+      against the unweighted detected count.  For the thin-film gate
+      this runs on a film that does not detect: the model's forced
+      detection weighs a photon by detect / absorb(normal incidence)
+      without the film's own absorption probability (as the reference
+      does, chroma/cuda/photon.h propagate_complex), so it does not
+      estimate the unweighted count.
+    """
+    from chroma_tpu_torch import gpu, host
+    E = event
+    out = []
+
+    def run(geo, photons, rng_seed, **kw):
+        gg = gpu.GPUGeometry(geo, device)
+        p = gpu.GPUPhotons(photons, device)
+        p.propagate(gg, gpu.get_rng_states(seed=rng_seed, device=device),
+                    **kw)
+        return p.get()
+
+    def fraction(p, what, bit, q):
+        out.append(('%s: %s share after one step' % (gate, what),
+                    _flag_fraction(p.flags, bit), q,
+                    np.sqrt(max(q * (1.0 - q), 1e-6) / n)))
+
+    # ---- one-step outcome fractions ----------------------------------
+    if gate == 'reemission':
+        p = run(host.gate_box(gate), host.beam_photons(n, wavelength=250.0),
+                seed + 1, max_steps=1)
+        absorbed = 1.0 - np.exp(-50.0 / host.SCINT_ABSORPTION)
+        fraction(p, 'BULK_REEMIT', E.BULK_REEMIT,
+                 absorbed * host.SCINT_REEMIT)
+        fraction(p, 'BULK_ABSORB', E.BULK_ABSORB,
+                 absorbed * (1.0 - host.SCINT_REEMIT))
+        wl = p.wavelengths[(p.flags & E.BULK_REEMIT) != 0]
+    elif gate == 'wls':
+        p = run(host.gate_box(gate), host.beam_photons(n), seed + 1,
+                max_steps=1)
+        fraction(p, 'SURFACE_ABSORB', E.SURFACE_ABSORB,
+                 host.WLS_ABSORB * (1.0 - host.WLS_REEMIT))
+        fraction(p, 'SURFACE_REEMIT', E.SURFACE_REEMIT,
+                 host.WLS_ABSORB * host.WLS_REEMIT)
+        fraction(p, 'REFLECT_SPECULAR', E.REFLECT_SPECULAR, host.WLS_RSPEC)
+        fraction(p, 'REFLECT_DIFFUSE', E.REFLECT_DIFFUSE, host.WLS_RDIFF)
+        fraction(p, 'SURFACE_TRANSMIT', E.SURFACE_TRANSMIT,
+                 1.0 - host.WLS_ABSORB - host.WLS_RSPEC - host.WLS_RDIFF)
+        wl = p.wavelengths[(p.flags & E.SURFACE_REEMIT) != 0]
+    elif gate == 'dichroic':
+        theta, wavelength = 0.6, 350.0
+        p = run(host.gate_box(gate),
+                host.beam_photons(n, theta=theta, wavelength=wavelength),
+                seed + 1, max_steps=1)
+        r, t = host.dichroic_expect(theta, wavelength)
+        fraction(p, 'REFLECT_SPECULAR', E.REFLECT_SPECULAR, r)
+        fraction(p, 'SURFACE_TRANSMIT', E.SURFACE_TRANSMIT, t)
+        fraction(p, 'SURFACE_ABSORB', E.SURFACE_ABSORB, 1.0 - r - t)
+        wl = None
+    elif gate == 'complex':
+        qe = 0.2
+        p = run(host.gate_box(gate, film_detect=qe), host.beam_photons(n),
+                seed + 1, max_steps=1)
+        r, t = host.film_normal_rt(1.0, 1.0, 400.0)
+        fraction(p, 'SURFACE_DETECT', E.SURFACE_DETECT, qe)
+        fraction(p, 'SURFACE_ABSORB', E.SURFACE_ABSORB, 1.0 - r - t - qe)
+        fraction(p, 'REFLECT_DIFFUSE', E.REFLECT_DIFFUSE,
+                 r * host.FILM_RDIFF)
+        fraction(p, 'REFLECT_SPECULAR', E.REFLECT_SPECULAR,
+                 r * (1.0 - host.FILM_RDIFF))
+        fraction(p, 'SURFACE_TRANSMIT', E.SURFACE_TRANSMIT, t)
+        wl = None
+    else:
+        raise ValueError('gate must be one of %s, got %r'
+                         % (host.GATES, gate))
+    if wl is not None:
+        out.append(('%s: mean reemitted wavelength of %d photons, nm'
+                    % (gate, len(wl)),
+                    float(wl.mean()) if len(wl) else float('nan'),
+                    host.REEMIT_PEAK,
+                    host.REEMIT_WIDTH / np.sqrt(max(len(wl), 1))))
+
+    # ---- weighted against unweighted detection -----------------------
+    geo = host.gate_box(gate)
+    np.random.seed(seed + 2)
+    bomb = host.photon_bomb(n, 400.0, (0.0, 0.0, 0.0)).photons_beg
+    plain = run(geo, bomb, seed + 3, max_steps=30)
+    weighted = run(geo, bomb, seed + 4, max_steps=30, use_weights=True)
+    det = (plain.flags & np.uint32(E.SURFACE_DETECT)) != 0
+    wdet = weighted.weights * ((weighted.flags
+                                & np.uint32(E.SURFACE_DETECT)) != 0)
+    out.append(('%s: weighted detection sum against the unweighted count '
+                'of %d photons' % (gate, n), float(wdet.sum()),
+                float(det.sum()),
+                float(np.sqrt(n * (det.var() + wdet.var())))))
+    return out

@@ -1,19 +1,20 @@
-"""Simulation: batch photon bundles, propagate them, digitize the hits.
+"""Simulation: batch photon bundles, propagate them, digitize the hits,
+and fill or evaluate the PDFs a likelihood fit reads.
 
 Counterpart of chroma_tpu/sim.py for photon input (``geant4_processes=0``)
 on one device.  The event batching and de-batching is the JAX package's;
-photon generation from particle vertices, photon tracking, multi-device
-meshes and the PDF / likelihood methods are not ported yet.
+photon generation from particle vertices and multi-device meshes are not
+ported yet.
 """
 import os
 import time
 
 import numpy as np
-import torch
 
 from chroma_tpu_torch import event
 from chroma_tpu_torch import itertoolset
 from chroma_tpu_torch import gpu
+from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.ops import daq as daq_ops
 
 
@@ -22,35 +23,64 @@ def pick_seed():
     return int(time.time()) ^ (os.getpid() << 16) & (2 ** 32 - 1)
 
 
+def _photon_tracks(tracking, start, end):
+    """One Photons polyline per photon of [start, end) from the
+    (step_photon_ids, step_photons) snapshots of tracking mode."""
+    step_ids, step_photons = tracking
+    tracks = [[] for _ in range(end - start)]
+    for ids, photons in zip(step_ids, step_photons):
+        mask = (ids >= start) & (ids < end)
+        sub = photons[mask]
+        for j, pid in enumerate(ids[mask] - start):
+            tracks[pid].append(sub[j:j + 1])
+    return [event.Photons.join(t) if t else event.Photons() for t in tracks]
+
+
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
-                 device=None, driver='fused'):
-        """``detector``: a Geometry/Detector (flattened here if needed)
-        or a geometry string for chroma_tpu_torch.loader.  Photon generation
-        from vertices (``geant4_processes`` > 0) is not ported.
-        ``driver`` is ``GPUPhotons.propagate``'s: 'fused' (the on-deck
-        lane-pool driver) or 'steps' (the step loop)."""
+                 device=None, driver='fused', photon_tracking=False):
+        """``detector``: a Geometry/Detector (flattened here if needed),
+        a geometry string for chroma_tpu_torch.loader, or packed tables
+        already on a device (a ``gpu.GPUDetector`` or ``gpu.GPUGeometry``,
+        for example from ``GPUDetector.from_table_cache``: nothing is
+        packed again and ``device`` is theirs).  Photon generation from
+        vertices (``geant4_processes`` > 0) is not ported.  ``driver`` is
+        ``GPUPhotons.propagate``'s: 'fused' (the on-deck lane-pool
+        driver) or 'steps' (the step loop).  ``photon_tracking`` runs
+        the tracking mode instead and fills each event's
+        ``photon_tracks``."""
         if geant4_processes:
             raise NotImplementedError(
                 'photon generation from vertices (geant4_processes > 0) is '
                 'not ported to chroma_tpu_torch; pass Photons or Events '
                 'with photons_beg')
-        if isinstance(detector, str):
-            from chroma_tpu_torch.loader import load_geometry_from_string
-            detector = load_geometry_from_string(detector)
-        detector.flatten()
-        self.detector = detector
         self.driver = driver
-        self.device = torch.device(device) if device is not None \
-            else gpu.default_device()
+        self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else seed
         np.random.seed(self.seed)
-        if hasattr(detector, 'num_channels'):
-            self.gpu_geometry = gpu.GPUDetector(detector, self.device)
+        if isinstance(detector, gpu.GPUGeometry):
+            self.gpu_geometry = detector
+            self.detector = detector.geometry
+            self.device = detector.device
         else:
-            self.gpu_geometry = gpu.GPUGeometry(detector, self.device)
+            if isinstance(detector, str):
+                from chroma_tpu_torch.loader import load_geometry_from_string
+                detector = load_geometry_from_string(detector)
+            detector.flatten()
+            self.detector = detector
+            self.device = resolve(device)
+            if hasattr(detector, 'num_channels'):
+                self.gpu_geometry = gpu.GPUDetector(detector, self.device)
+            else:
+                self.gpu_geometry = gpu.GPUGeometry(detector, self.device)
+        self.is_detector = self.gpu_geometry.det is not None
+        if self.is_detector:
+            self.gpu_daq = gpu.GPUDaq(self.gpu_geometry)
+            self.gpu_pdf = gpu.GPUPDF()
+            self.gpu_pdf_kernel = gpu.GPUKernelPDF()
         self.rng_states = gpu.get_rng_states(seed=self.seed,
                                              device=self.device)
+        self.pdf_config = None
 
     def _simulate_batch(self, batch_events, keep_photons_beg=False,
                         keep_photons_end=False, keep_hits=True,
@@ -63,9 +93,10 @@ class Simulation(object):
         gpu_photons = gpu.GPUPhotons(batch_photons, self.device,
                                      copy_triangles=False,
                                      copy_weights=False)
-        gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                              max_steps=max_steps, driver=self.driver)
-        is_detector = hasattr(self.detector, 'num_channels')
+        tracking = gpu_photons.propagate(
+            self.gpu_geometry, self.rng_states, max_steps=max_steps,
+            driver=self.driver, track=self.photon_tracking)
+        is_detector = self.is_detector
 
         if keep_photons_end:
             batch_photons_end = gpu_photons.get()
@@ -85,6 +116,8 @@ class Simulation(object):
                 batch_events, zip(batch_bounds[:-1], batch_bounds[1:]))):
             if not keep_photons_beg:
                 batch_ev.photons_beg = None
+            if tracking is not None:
+                batch_ev.photon_tracks = _photon_tracks(tracking, start, end)
             if keep_photons_end:
                 batch_ev.photons_end = batch_photons_end[start:end]
             if is_detector and (keep_hits or keep_flat_hits):
@@ -108,19 +141,7 @@ class Simulation(object):
                  photons_per_batch=1000000, evid_start=0):
         """Yield simulated Events for an iterable of Photons or of Events
         that carry ``photons_beg`` (reference: chroma/sim.py:141)."""
-        if isinstance(iterable, event.Photons):
-            first_element, iterable = iterable, [iterable]
-        else:
-            first_element, iterable = itertoolset.peek(iterable)
-
-        if isinstance(first_element, event.Photons):
-            iterable = (event.Event(photons_beg=x) for x in iterable)
-        elif not isinstance(first_element, event.Event) \
-                or first_element.photons_beg is None:
-            raise NotImplementedError(
-                'chroma_tpu_torch simulates Photons or Events that carry '
-                'photons_beg; photon generation is not ported')
-
+        iterable = self._photon_events(iterable)
         nphotons = 0
         batch_events = []
         evid = evid_start
@@ -141,3 +162,140 @@ class Simulation(object):
                 batch_events = []
         if batch_events:
             yield from self._simulate_batch(batch_events, **kw)
+
+    # ------------------------------------------------------------------
+
+    def _photon_events(self, iterable):
+        """An iterable of Events with ``photons_beg`` filled, from a bare
+        Photons bundle (ONE event, as in ``simulate``), an iterable of
+        Photons or an iterable of such Events."""
+        if isinstance(iterable, event.Photons):
+            first_element, iterable = iterable, [iterable]
+        else:
+            first_element, iterable = itertoolset.peek(iterable)
+        return self._ensure_photon_events(first_element, iterable)
+
+    def _ensure_photon_events(self, first_element, iterable):
+        if isinstance(first_element, event.Photons):
+            return (event.Event(photons_beg=x) for x in iterable)
+        if isinstance(first_element, event.Event) \
+                and first_element.photons_beg is not None:
+            return iterable
+        if isinstance(first_element, (event.Event, event.Vertex)):
+            raise NotImplementedError(
+                'chroma_tpu_torch simulates Photons or Events that carry '
+                'photons_beg; photon generation is not ported')
+        raise TypeError('cannot simulate %r' % type(first_element))
+
+    def _acquire(self, gpu_daq, *photon_sets):
+        """One readout of ``gpu_daq`` over (photons, weight) pairs."""
+        gpu_daq.begin_acquire()
+        for photons, weight in photon_sets:
+            gpu_daq.acquire(photons, self.rng_states, weight=weight)
+        return gpu_daq.end_acquire()
+
+    def create_pdf(self, iterable, tbins, trange, qbins, qrange, nreps=1):
+        """(hitcounts, 3D (channel, t, q) pdf histogram) from simulating
+        the given events (reference: chroma/sim.py:188)."""
+        iterable = self._photon_events(iterable)
+        pdf_config = (tbins, trange, qbins, qrange)
+        if pdf_config != self.pdf_config:
+            self.pdf_config = pdf_config
+            self.gpu_pdf.setup_pdf(self.gpu_geometry.nchannels, tbins,
+                                   trange, qbins, qrange)
+        else:
+            self.gpu_pdf.clear_pdf()
+        if nreps > 1:
+            iterable = itertoolset.repeating_iterator(iterable, nreps)
+        for ev in iterable:
+            gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device)
+            gpu_photons.propagate(self.gpu_geometry, self.rng_states,
+                                  driver=self.driver)
+            self.gpu_pdf.add_hits_to_pdf(
+                self._acquire(self.gpu_daq, (gpu_photons, 1.0)))
+        return self.gpu_pdf.get_pdfs()
+
+    def eval_pdf(self, event_channels, iterable, min_twidth, trange,
+                 min_qwidth, qrange, min_bin_content=100, nreps=1, ndaq=1,
+                 nscatter=1, time_only=True):
+        """Variable-bin PDF evaluation with importance-weighted
+        scatter / no-scatter splits (reference: chroma/sim.py:219).
+        Returns (hitcount, pdf value, pdf uncertainty) per channel."""
+        ndaq_per_rep = min(64, ndaq)
+        ndaq_reps = max(ndaq // ndaq_per_rep, 1)
+        gpu_daq = gpu.GPUDaq(self.gpu_geometry, ndaq=ndaq_per_rep)
+
+        self.gpu_pdf.setup_pdf_eval(event_channels.hit, event_channels.t,
+                                    event_channels.q, min_twidth, trange,
+                                    min_qwidth, qrange,
+                                    min_bin_content=min_bin_content,
+                                    time_only=time_only)
+
+        for ev in self._photon_events(iterable):
+            no_scatter = gpu.GPUPhotons(ev.photons_beg, self.device,
+                                        ncopies=nreps)
+            scatter = gpu.GPUPhotons(ev.photons_beg, self.device,
+                                     ncopies=nreps * nscatter)
+            no_scatter.propagate(self.gpu_geometry, self.rng_states,
+                                 use_weights=True, scatter_first=-1,
+                                 max_steps=10, driver=self.driver)
+            scatter.propagate(self.gpu_geometry, self.rng_states,
+                              use_weights=True, scatter_first=1,
+                              max_steps=5, driver=self.driver)
+            stride = no_scatter.stride
+            for i in range(no_scatter.ncopies):
+                ns_slice = no_scatter.select(event.SURFACE_DETECT,
+                                             start_photon=i * stride,
+                                             nphotons=stride)
+                if ns_slice.true_nphotons == 0:
+                    continue
+                sets = [(ns_slice, 1.0)]
+                for j in range(nscatter):
+                    sc = scatter.select(
+                        event.SURFACE_DETECT,
+                        start_photon=(nscatter * i + j) * scatter.stride,
+                        nphotons=scatter.stride)
+                    if sc.true_nphotons:
+                        sets.append((sc, 1.0 / nscatter))
+                for _ in range(ndaq_reps):
+                    self.gpu_pdf.accumulate_pdf_eval(
+                        self._acquire(gpu_daq, *sets))
+        return self.gpu_pdf.get_pdf_eval()
+
+    def _each_readout(self, iterable, nreps, ndaq):
+        """Single-DAQ channel readouts: every event of ``iterable``
+        propagated in ``nreps`` copies, each copy digitized ``ndaq``
+        times."""
+        for ev in self._photon_events(iterable):
+            gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device,
+                                         ncopies=nreps)
+            gpu_photons.propagate(self.gpu_geometry, self.rng_states,
+                                  driver=self.driver)
+            for ph_slice in gpu_photons.iterate_copies():
+                for _ in range(ndaq):
+                    yield self._acquire(self.gpu_daq, (ph_slice, 1.0))
+
+    def setup_kernel(self, event_channels, bandwidth_iterable, trange,
+                     qrange, nreps=1, ndaq=1, time_only=True,
+                     scale_factor=1.0):
+        """Accumulate moments and compute the KDE bandwidths
+        (reference: chroma/sim.py:285)."""
+        self.gpu_pdf_kernel.setup_moments(len(event_channels.hit), trange,
+                                          qrange, time_only=time_only)
+        for channels in self._each_readout(bandwidth_iterable, nreps, ndaq):
+            self.gpu_pdf_kernel.accumulate_moments(channels)
+        self.gpu_pdf_kernel.compute_bandwidth(event_channels.hit,
+                                              event_channels.t,
+                                              event_channels.q,
+                                              scale_factor=scale_factor)
+
+    def eval_kernel(self, event_channels, kernel_iterable, trange, qrange,
+                    nreps=1, ndaq=1, naverage=1, time_only=True):
+        """(hitcount, KDE pdf values, zeros) (reference:
+        chroma/sim.py:315)."""
+        self.gpu_pdf_kernel.setup_kernel(event_channels.hit,
+                                         event_channels.t,
+                                         event_channels.q)
+        for channels in self._each_readout(kernel_iterable, nreps, ndaq):
+            self.gpu_pdf_kernel.accumulate_kernel(channels)
+        return self.gpu_pdf_kernel.get_kernel_eval()

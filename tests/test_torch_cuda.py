@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of chroma_tpu_torch against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card; the gated physics models, one ``eval_pdf``
+and tracking mode through those kernels.
 
 These tests need an NVIDIA card and nvcc, and skip elsewhere.  They
 import neither jax nor tests/conftest.py (which does), so on a card host
@@ -247,3 +248,64 @@ def test_referee_terminal_passthrough_on_card(dev):
     g = _tables('tiny', dev)
     for od_slots in (1, 2):
         assert referee.terminal_passthrough(g, od_slots=od_slots) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('gate', host.GATES)
+def test_gate_box_on_card(dev, gate):
+    """Each gated physics model in its gate box through the on-deck
+    driver on the card: one-step outcome shares against the specified
+    probabilities and the weighted detection sum against the unweighted
+    count, within 5 sigma; the window kernel launched (flat tables: K1's
+    on-deck variant)."""
+    from chroma_tpu_torch import referee
+    counter = mbvh_walk.walk_window_launches[1]
+    before = counter.launches
+    results = referee.gate_box_checks(gate, dev, n=100000, seed=7)
+    assert counter.launches > before
+    for what, observed, expected, sigma in results:
+        assert abs(observed - expected) <= 5.0 * sigma, \
+            (what, observed, expected, sigma)
+
+
+@pytest.mark.cuda
+def test_eval_pdf_and_tracking_on_card(dev):
+    """One ``eval_pdf`` through ``Likelihood`` on demo.tiny on the card
+    (weighted on-deck propagation, DAQ at ndaq 8, variable-bin PDF), and
+    tracking mode against the step loop, bit for bit."""
+    from chroma_tpu_torch import gpu
+    from chroma_tpu_torch.likelihood import Likelihood
+    from chroma_tpu_torch.sim import Simulation
+    sim = Simulation(host.demo.tiny(), seed=5, device=dev)
+    pos = (200.0, 0.0, 0.0)
+    np.random.seed(6)
+    ev = next(sim.simulate(host.photon_bomb(20000, 400.0, pos).photons_beg,
+                           run_daq=True))
+    assert ev.channels.hit.sum() > 10
+
+    def bombs():
+        while True:
+            yield host.photon_bomb(20000, 400.0, pos).photons_beg
+
+    before = mbvh_walk.walk_window_launches[1].launches
+    lik = Likelihood(sim, event=ev, trange=(-0.5, 99.5))
+    hit_prob, pdf_prob, _ = lik.eval_channel_vbin(bombs(), 1, nreps=2,
+                                                  ndaq=8, min_bin_content=10)
+    assert mbvh_walk.walk_window_launches[1].launches > before
+    assert np.isfinite(pdf_prob).all() and hit_prob.max() > 0.2
+    nll = lik.eval(bombs(), nevals=1, nreps=2, ndaq=8)
+    assert np.isfinite(nll.nominal_value)
+
+    ph = host.photon_bomb(4096, 400.0, pos).photons_beg
+    tracked, stepped = gpu.GPUPhotons(ph, dev), gpu.GPUPhotons(ph, dev)
+    before = mbvh_walk.closest_hit_launches.launches
+    _, snaps = tracked.propagate(sim.gpu_geometry,
+                                 gpu.get_rng_states(seed=3, device=dev),
+                                 max_steps=30, track=True)
+    assert mbvh_walk.closest_hit_launches.launches - before \
+        == tracked.last_steps == len(snaps) - 1
+    stepped.propagate(sim.gpu_geometry,
+                      gpu.get_rng_states(seed=3, device=dev), max_steps=30,
+                      driver='steps')
+    for key, v in stepped.state.items():
+        assert torch.equal(tracked.state[key], v), key

@@ -13,6 +13,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
+
 from chroma_tpu import demo, event
 from chroma_tpu.ops import geometry_pack as jgp
 from chroma_tpu.ops import daq as jdaq

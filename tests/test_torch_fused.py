@@ -33,6 +33,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
+
 from chroma_tpu import demo, event, referee as jreferee
 from chroma_tpu.generator.photon import photon_bomb
 from chroma_tpu.ops import fused as F
@@ -131,7 +135,7 @@ def _port_lane(lane, depth, od_slots):
                                  else a).copy())
     W = mbvh_walk.walker_state_from_jax(
         {k[2:]: np.asarray(lane[k]) for k in F._w_keys_od(od_slots)},
-        depth, True, od_slots)
+        depth, True, od_slots, 'cpu')
     out = dict(pk=i32('pk'), W=W, holding=i32('holding'), step=i32('step'))
     for pre in ('odk', 'odk2')[:od_slots]:
         out.update({pre + s: i32(pre + s)
@@ -139,12 +143,10 @@ def _port_lane(lane, depth, od_slots):
     return out
 
 
-@pytest.fixture(scope='module', params=[1, 2])
-def service_pass(request, tiny):
+def run_service_pass(tiny, od_slots, use_weights=False, scatter_first=0):
     """A JAX lane set after window, service pass, window (so on-deck
     slots are filled and parked results wait), then one more service
     pass through both packages from that state with the same draws."""
-    od_slots = request.param
     jgeom, pgeom, _ = tiny
     n, w, max_steps = 640, 128, 40
     depth = int(jgeom.mbvh_depth)
@@ -153,7 +155,8 @@ def service_pass(request, tiny):
     lane = F._make_lane(state, jgeom, 0, w, depth, pal=True, ondeck=True,
                         packed=packed, od_slots=od_slots)
     svc = jax.jit(partial(F._service_ondeck, geom=jgeom, max_steps=max_steps,
-                          scatter_first=0, use_weights=False, idx_bases=[0],
+                          scatter_first=scatter_first,
+                          use_weights=use_weights, idx_bases=[0],
                           od_slots=od_slots))
     pools, ptrs = [packed], [jnp.asarray(w, jnp.int32)]
     keys = [jax.random.PRNGKey(7)]
@@ -171,12 +174,17 @@ def service_pass(request, tiny):
     ppool = torch.from_numpy(np.concatenate([pool0, pool0[:1] * 0]))
     pptr = fused._service_ondeck(
         plane, ppool, torch.tensor(int(ptrs[0]), dtype=torch.int64),
-        lambda rows: torch.from_numpy(u[:rows].copy()), pgeom, max_steps, 0,
-        od_slots)
+        lambda rows: torch.from_numpy(u[:rows].copy()), pgeom, max_steps,
+        scatter_first, od_slots, use_weights)
     lanes, pools, ptrs, _ = svc([lane], pools, ptrs, keys)
     return dict(od_slots=od_slots, start=start, ref=lanes[0],
                 ref_pool=pools[0], ref_ptr=int(ptrs[0]), lane=plane,
                 pool=ppool, ptr=int(pptr), n=n, depth=depth)
+
+
+@pytest.fixture(scope='module', params=[1, 2])
+def service_pass(request, tiny):
+    return run_service_pass(tiny, request.param)
 
 
 def test_service_pass_sets_present(service_pass):
@@ -192,6 +200,10 @@ def test_service_pass_sets_present(service_pass):
 
 
 def test_service_pass_matches_jax(service_pass):
+    assert_service_pass_matches(service_pass)
+
+
+def assert_service_pass_matches(service_pass):
     p, ref, od_slots = service_pass['lane'], service_pass['ref'], \
         service_pass['od_slots']
     assert service_pass['ptr'] == service_pass['ref_ptr']
@@ -290,7 +302,7 @@ def test_second_slot_drains_pool_in_fewer_passes(tiny, monkeypatch):
 
 def test_empty_batch_and_bad_slots(tiny):
     _, pgeom, _ = tiny
-    state = tprop.make_photon_state(0)
+    state = tprop.make_photon_state(0, device='cpu')
     gen = torch.Generator()
     out, stats = fused.propagate_fused(state, pgeom, fused.uniform_draws(gen))
     assert out['pos'].shape == (0, 3) and stats.tolist() == [0, 0, 0, 0]

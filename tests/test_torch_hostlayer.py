@@ -14,7 +14,11 @@ import pytest
 
 import tests.conftest  # noqa: F401
 import jax  # noqa: F401  (imported before torch, as the test files do)
-import torch  # noqa: F401
+import torch
+
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
 
 from chroma_tpu import demo as jdemo, make as jmake
 from chroma_tpu.bvh import mbvh as jmbvh

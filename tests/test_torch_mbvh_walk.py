@@ -20,6 +20,10 @@ import tests.conftest  # noqa: F401
 import jax.numpy as jnp
 import torch
 
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
+
 from chroma_tpu import make
 from chroma_tpu.ops import mbvh_pallas as MP
 from chroma_tpu.ops.geometry_pack import pack_geometry

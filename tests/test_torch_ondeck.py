@@ -32,6 +32,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
+
 from chroma_tpu import make
 from chroma_tpu.bvh.mbvh import HDR_BASE, HDR_KIND
 from chroma_tpu.ops import mbvh as jmbvh
@@ -164,7 +168,8 @@ def windows(request):
     jgeom, pgeom = request.getfixturevalue(name)
     depth, inst = int(jgeom.mbvh_depth), bool(jgeom.mbvh_instanced)
     W0 = _jax_state(jgeom, n, od_slots, seed=n + od_slots)
-    Wp = mbvh_walk.walker_state_from_jax(_np(W0), depth, inst, od_slots)
+    Wp = mbvh_walk.walker_state_from_jax(_np(W0), depth, inst, od_slots,
+                                         'cpu')
     out = dict(start=_np(W0), od_slots=od_slots, instanced=inst,
                depth=depth)
     Wj = W0
@@ -227,7 +232,8 @@ def test_converter_round_trip_is_exact(tiny):
     jgeom, _ = tiny
     W = _np(_run_jax(jgeom, _jax_state(jgeom, 128, 2, seed=5), 40, 2))
     assert (W['uregs'][MP.U_PAD] & 4).any()
-    port = mbvh_walk.walker_state_from_jax(W, int(jgeom.mbvh_depth), True, 2)
+    port = mbvh_walk.walker_state_from_jax(W, int(jgeom.mbvh_depth), True, 2,
+                                           'cpu')
     assert all(mbvh_walk.in_window_layout(k, v) for k, v in port.items())
     back = mbvh_walk.walker_state_to_jax(port, int(jgeom.mbvh_depth), 2)
     assert sorted(back) == sorted(W)
@@ -242,8 +248,9 @@ def test_window_split_is_invariant(tiny, od_slots):
     jgeom, pgeom = tiny
     W0 = _np(_jax_state(jgeom, 192, od_slots, seed=9))
     depth = int(jgeom.mbvh_depth)
-    one = mbvh_walk.walker_state_from_jax(W0, depth, True, od_slots)
-    split = mbvh_walk.walker_state_from_jax(W0, depth, True, od_slots)
+    one = mbvh_walk.walker_state_from_jax(W0, depth, True, od_slots, 'cpu')
+    split = mbvh_walk.walker_state_from_jax(W0, depth, True, od_slots,
+                                            'cpu')
     _run_port(pgeom, one, 60, od_slots)
     for k in (7, 13, 40):
         _run_port(pgeom, split, k, od_slots)
@@ -259,7 +266,7 @@ def test_cpu_state_takes_the_plain_window(sphere24):
     jgeom, pgeom = sphere24
     W = mbvh_walk.walker_state_from_jax(
         _np(_jax_state(jgeom, 32, 1, seed=1)), int(jgeom.mbvh_depth), False,
-        1)
+        1, 'cpu')
     before = mbvh_walk.walk_window_launches[1].launches
     _run_port(pgeom, W, 3, 1)
     assert mbvh_walk.walk_window_launches[1].launches == before

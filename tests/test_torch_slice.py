@@ -17,6 +17,12 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
+import jax  # noqa: F401  (imported before torch, as the test files do)
+import torch
+
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
 
 from chroma_tpu import demo, event
 from chroma_tpu.generator.photon import photon_bomb
@@ -118,8 +124,9 @@ def test_simulate_step_driver_matches_jax(jax_events):
 def test_port_never_imports_jax():
     """Importing every module of the port and running a small propagation
     with DAQ (the on-deck driver, one and two slots, and the step loop)
-    through Simulation must leave jax and every module of the JAX
-    package chroma_tpu out of sys.modules."""
+    through Simulation, a likelihood evaluation, a PDF fill and a tracked
+    propagation must leave jax and every module of the JAX package
+    chroma_tpu out of sys.modules."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
         'import numpy as np',
@@ -139,6 +146,17 @@ def test_port_never_imports_jax():
         '    p = gpu.GPUPhotons(ph, "cpu")',
         '    p.propagate(sim.gpu_geometry, sim.rng_states, **kw)',
         '    assert (p.last_stats is not None) != ("driver" in kw)',
+        'from chroma_tpu_torch.likelihood import Likelihood',
+        'def bombs():',
+        '    while True:',
+        '        yield host.photon_bomb(300, 400.0, (0.0, 0.0, 0.0)).photons_beg',
+        'lik = Likelihood(sim, event=ev)',
+        'nll = lik.eval(bombs(), nevals=1, nreps=1, ndaq=2)',
+        'assert np.isfinite(nll.nominal_value)',
+        'sim.create_pdf(ph, 8, (-0.5, 99.5), 2, (-0.5, 9.5))',
+        'tracks = gpu.GPUPhotons(ph, "cpu").propagate(',
+        '    sim.gpu_geometry, sim.rng_states, max_steps=3, track=True)',
+        'assert len(tracks[1]) >= 2',
         "bad = sorted(m for m in sys.modules if m in ('jax', 'chroma_tpu')",
         "             or m.startswith(('jax.', 'jaxlib', 'flax',",
         "                              'chroma_tpu.')))",
@@ -154,12 +172,18 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize('entry', [
     'default_device', 'GPUPhotons', 'GPUGeometry', 'GPUDetector',
-    'from_table_cache', 'get_rng_states', 'Simulation'])
+    'from_table_cache', 'get_rng_states', 'Simulation',
+    'tables_from_numpy', 'pack_geometry', 'pack_detector', 'load_tables',
+    'make_photon_state', 'ondeck_empty', 'walker_state_from_jax',
+    'load_photons'])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    """With no card and no ``device`` argument every entry point raises
-    (naming device='cpu'); nothing falls back to the CPU."""
+    """With no card and no ``device`` argument every entry point and
+    every public function that makes tensors raises (naming
+    device='cpu'); nothing falls back to the CPU."""
     import torch
-    from chroma_tpu_torch import gpu, host
+    from chroma_tpu_torch import benchmark, gpu, host
+    from chroma_tpu_torch.ops import geometry_pack, mbvh_walk, propagate, \
+        table_cache
     from chroma_tpu_torch.sim import Simulation
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     np.random.seed(1)
@@ -172,7 +196,18 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
                 from_table_cache=lambda: gpu.GPUDetector.from_table_cache(
                     'absent'),
                 get_rng_states=lambda: gpu.get_rng_states(seed=1),
-                Simulation=lambda: Simulation(geo, seed=1))[entry]
+                Simulation=lambda: Simulation(geo, seed=1),
+                tables_from_numpy=lambda: geometry_pack.tables_from_numpy(
+                    {}, None, {}),
+                pack_geometry=lambda: geometry_pack.pack_geometry(geo),
+                pack_detector=lambda: geometry_pack.pack_detector(geo),
+                load_tables=lambda: table_cache.load_tables('absent'),
+                make_photon_state=lambda: propagate.make_photon_state(4),
+                ondeck_empty=lambda: mbvh_walk.ondeck_empty(4),
+                walker_state_from_jax=lambda: mbvh_walk.walker_state_from_jax(
+                    {}, 2, False),
+                load_photons=lambda: benchmark.load_photons(
+                    number=1, nphotons=10))[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     # the CPU, named, still works

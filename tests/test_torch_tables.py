@@ -14,6 +14,10 @@ import tests.conftest  # noqa: F401
 import jax  # noqa: F401  (imported before torch, as the test files do)
 import torch
 
+# one intra-op thread: the suite runs in several worker processes that
+# share the cores, and oversubscribed thread teams stall each other
+torch.set_num_threads(1)
+
 from chroma_tpu import demo
 from chroma_tpu.ops import geometry_pack as jgp
 from chroma_tpu.ops import table_cache as jtc

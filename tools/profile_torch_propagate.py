@@ -2,7 +2,7 @@
 
     python tools/profile_torch_propagate.py [--nphotons N] [--detector full]
         [--driver fused|steps] [--od-slots 1|2] [--width W]
-        [--service-every K] [--sweep]
+        [--service-every K] [--sweep] [--eval-pdf]
 
 Loads the packed tables from the table cache ('full' is filled by
 ``chip_smoke.py``, under .cache/chroma_tpu in the checkout unless
@@ -11,6 +11,11 @@ from the centre once to warm up, then once under ``torch.profiler`` and
 prints: wall time, the driver's step count or stats, the device time of
 the walker kernel against all device time, the device's idle share over
 the run, and the ten largest device kernels.
+
+``--eval-pdf`` profiles one ``Simulation.eval_pdf`` instead (the
+likelihood path: weighted, scatter-stratified propagation, DAQ at ndaq
+32, variable-bin PDF) at ``benchmark.pdf_eval``'s size: 20,000 photons,
+nreps 2, after one warm-up evaluation.
 
 ``--sweep`` instead times the on-deck driver (``benchmark.propagate``,
 one warm-up and two timed runs each) over lane widths and service
@@ -69,6 +74,47 @@ def sweep(gg, args, card):
                   flush=True)
 
 
+def report(prof, wall):
+    """Device busy time, idle share, the walker kernels' share and the
+    ten largest device kernels of a profiled region of ``wall`` s."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    walk_us = sum(e.self_device_time_total for e in events
+                  if any(name in e.key for name in _WALKERS))
+    print('device busy %.3f s (idle share %.3f); walker kernel %.3f s '
+          '(%.3f of busy)' % (total_us / 1e6, 1 - total_us / 1e6 / wall,
+                              walk_us / 1e6, walk_us / max(total_us, 1)))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print('  %8.1f ms  %6d calls  %s' % (e.self_device_time_total / 1e3,
+                                            e.count, e.key[:90]))
+
+
+def profile_eval_pdf(gg, card, nphotons=20000, nreps=2, ndaq=32):
+    from chroma_tpu_torch.generator.photon import photon_bomb
+    from chroma_tpu_torch.sim import Simulation
+    sim = Simulation(gg, seed=1)
+    ev = next(sim.simulate(
+        photon_bomb(nphotons, 400.0, (0, 0, 0)).photons_beg, run_daq=True))
+
+    def run():
+        photons = photon_bomb(nphotons, 400.0, (0, 0, 0)).photons_beg
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sim.eval_pdf(ev.channels, photons, 0.2, (-0.5, 999.5), 1,
+                     (-0.5, 9.5), nreps=nreps, ndaq=ndaq, min_bin_content=20)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    print('%s: one eval_pdf, %d photons, nreps %d, ndaq %d: wall %.3f s '
+          'under the profiler' % (card, nphotons, nreps, ndaq, wall))
+    report(prof, wall)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--nphotons', type=int, default=1 << 20)
@@ -80,6 +126,7 @@ def main():
     parser.add_argument('--service-every', type=int,
                         default=fused.SERVICE_EVERY)
     parser.add_argument('--sweep', action='store_true')
+    parser.add_argument('--eval-pdf', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA card')
@@ -90,6 +137,8 @@ def main():
         raise SystemExit("no '%s' table cache" % args.detector)
     if args.sweep:
         return sweep(gg, args, card)
+    if args.eval_pdf:
+        return profile_eval_pdf(gg, card)
     photons = benchmark._isotropic_photons(args.nphotons)
     rng = gpu.get_rng_states(seed=1, device=dev)
     kw = _driver_kw(args)
@@ -102,21 +151,11 @@ def main():
         p.propagate(gg, rng, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in events)
-    walk_us = sum(e.self_device_time_total for e in events
-                  if any(name in e.key for name in _WALKERS))
     print('%s: %d photons, %s driver, %s; wall %.3f s, %.0f photons/s'
           % (card, args.nphotons, args.driver,
              _stats_line(p, args.nphotons, args.width, args.service_every),
              wall, args.nphotons / wall))
-    print('device busy %.3f s (idle share %.3f); walker kernel %.3f s '
-          '(%.3f of busy)' % (total_us / 1e6, 1 - total_us / 1e6 / wall,
-                              walk_us / 1e6, walk_us / max(total_us, 1)))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        print('  %8.1f ms  %6d calls  %s' % (e.self_device_time_total / 1e3,
-                                            e.count, e.key[:90]))
+    report(prof, wall)
 
 
 if __name__ == '__main__':
