@@ -48,7 +48,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      PDF accumulation;
  11. tracking mode: 10,000 photons on demo.tiny with ``track=True``; the
      last snapshot equals the step loop's result from the same seed bit
-     for bit, one closest-hit launch a step.
+     for bit, one closest-hit launch a step;
+ 12. particle gun to event file on the full demo: 8 e- of 100 MeV and 4
+     mu- of 1,000 MeV from ``constant_particle_gun`` through
+     ``Simulation.simulate(run_daq=True)``, with the generator pool (2
+     spawned workers, started now that the card is in use) where pyzmq
+     is installed and ``TrackGenerator`` in-process otherwise; written
+     with ``NpzWriter`` and read back bit-equal with ``NpzReader``;
+     generation and propagation timed apart as well;
+ 13. the propagation server on the full demo: a ``ChromaServer`` and a
+     ``ChromaRATServer`` answer 4 requests each of the golden's bomb at
+     100,000 photons, over a REQ/REP socket where pyzmq is installed and
+     through ``answer()`` otherwise; the RAT replies' pooled detected
+     fraction against tests/golden/demo_full_pdf.npz;
+ 14. rendering: ``Camera`` on the full demo at 800x600, ``alpha_depth``
+     10 (one warm-up frame, three timed, then ``rotate`` and one more;
+     exactly ``alpha_depth`` K2 launches a frame; the split of a frame
+     into K2 and shading), a 160x120 view against the same ``render`` on
+     CPU tensors (plain walker), a flat sphere (K1), ``color_solids``
+     on half of the PMTs, and ``HybridRenderer`` on demo.tiny.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
 
@@ -61,12 +79,16 @@ FLOPS_*) over 67 TFLOP/s fp32, the
 published peaks of an H100 SXM at 700 W.  No PyTorch call computes a
 BVH walk, so no kernel has a library time.
 """
+import contextlib
+import itertools
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
+import uuid
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 os.environ.setdefault('CHROMA_TPU_CACHE',
@@ -77,6 +99,15 @@ import torch  # noqa: E402
 
 from chroma_tpu_torch import _build, benchmark, gpu, host  # noqa: E402
 from chroma_tpu_torch import referee  # noqa: E402
+from chroma_tpu_torch.camera import Camera  # noqa: E402
+from chroma_tpu_torch.cli.server import (ChromaRATServer,  # noqa: E402
+                                         ChromaServer)
+from chroma_tpu_torch.generator import photon as gen_photon  # noqa: E402
+from chroma_tpu_torch.generator.vertex import (  # noqa: E402
+    constant_particle_gun)
+from chroma_tpu_torch.io.npz import NpzReader, NpzWriter  # noqa: E402
+from chroma_tpu_torch.ops import render as render_ops  # noqa: E402
+from chroma_tpu_torch.tools import from_film  # noqa: E402
 from chroma_tpu_torch.ops import fused  # noqa: E402
 from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
@@ -93,6 +124,14 @@ NGATE = 200000          # photons of each gate-box run
 NBOMB = 100000          # photons of the reconstructed event
 BOMB_POS = (5000.0, 0.0, 0.0)   # mm; the PMT sphere's radius is 14,000
 NTRACK = 10000          # photons of the tracking-mode run
+# chroma-sim's default gun, and a muon; (particle, MeV, events)
+GUNS = (('e-', 100.0, 8), ('mu-', 1000.0, 4))
+NWORKERS = 2            # generator processes
+NREQUEST = 100000       # photons a server request
+NREQUESTS = 4           # requests a server
+FRAME = (800, 600)      # Camera's default size
+SMALL_FRAME = (160, 120)  # the view held against the CPU's render
+ALPHA_DEPTH = 10
 LONG_WINDOW = 4096      # iterations: every walk drains well before
 # ray counts at the edges of a warp (one warp walks one ray) and of a
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
@@ -402,11 +441,11 @@ def time_window(tables, n, od_slots, reps=5):
 
 def full_detector(dev):
     t0 = time.time()
-    gg = gpu.GPUDetector.from_table_cache('full', device=dev)
+    geo = host.demo.detector()
+    geo.flatten()
+    gg = gpu.GPUDetector.from_table_cache('full', detector=geo, device=dev)
     how = 'table cache'
     if gg is None:
-        geo = host.demo.detector()
-        geo.flatten()
         gg = gpu.GPUDetector(geo, dev)
         gg.save_table_cache('full')
         how = 'cold build (cache saved)'
@@ -419,7 +458,433 @@ def full_detector(dev):
     return gg
 
 
+COUNTERS = [mbvh_walk.closest_hit_launches,
+            *mbvh_walk.walk_window_launches.values()]
+
+
+def reset():
+    """Set every kernel's launch count to 0."""
+    for c in COUNTERS:
+        c.reset()
+
+
+def photons_equal(a, b):
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ('pos', 'dir', 'pol', 'wavelengths', 't', 'flags',
+                         'weights', 'evidx', 'last_hit_triangles'))
+
+
+def events_equal(a, b):
+    """Every stored field of two simulated events equal, bit for bit."""
+    ok = a.id == b.id \
+        and photons_equal(a.photons_end, b.photons_end) \
+        and photons_equal(a.flat_hits, b.flat_hits) \
+        and np.array_equal(a.flat_hits.channel, b.flat_hits.channel) \
+        and len(a.vertices) == len(b.vertices)
+    for f in ('hit', 't', 'q', 'flags'):
+        ok = ok and np.array_equal(getattr(a.channels, f),
+                                   getattr(b.channels, f))
+    for va, vb in zip(a.vertices, b.vertices):
+        ok = ok and va.particle_name == vb.particle_name \
+            and va.ke == vb.ke and np.array_equal(va.pos, vb.pos) \
+            and np.array_equal(va.dir, vb.dir)
+    return ok
+
+
+def gun_phase(gg, card):
+    """Phase 12; returns its K3 launches."""
+    pool = gen_photon.HAVE_ZMQ
+    material = gg.geometry.detector_material
+    check(torch.cuda.is_initialized(), 'the card is not in use yet')
+    t0 = time.time()
+    sim = Simulation(gg, seed=G.GOLDEN_SEED + 12,
+                     geant4_processes=NWORKERS if pool else 0)
+    launches = 0
+    try:
+        if pool:
+            workers = list(sim.photon_generator.processes)
+            sim.photon_generator._wait_for_ready()
+            print('generator pool: %d spawned workers ready %.1f s after '
+                  'the card came into use' % (NWORKERS, time.time() - t0),
+                  flush=True)
+        plain_sim = Simulation(gg, seed=G.GOLDEN_SEED + 13)
+        out = os.path.join(ROOT, '.cache', 'chip_smoke_events.npz')
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        writer = NpzWriter(out)
+        if hasattr(gg.geometry, 'channel_index_to_position'):
+            writer.set_detector(gg.geometry)
+        written = []
+        for particle, ke, nevents in GUNS:
+            def gun(n=nevents, start_id=0):
+                return itertools.islice(constant_particle_gun(
+                    particle, (0, 0, 0), (1, 0, 0), ke, start_id=start_id), n)
+
+            # generation alone, then propagation + DAQ alone on those
+            # events (a Simulation without a pool takes their photons)
+            t0 = time.time()
+            if pool:
+                made = list(sim.photon_generator.generate_events(gun()))
+            else:
+                generator = gen_photon.TrackGenerator(
+                    material, rng=np.random.RandomState(G.GOLDEN_SEED))
+                made = list(gun())
+                for ev in made:
+                    ev.photons_beg = generator.generate_photons(ev.vertices)
+            t_gen = time.time() - t0
+            t0 = time.time()
+            n_alone = sum(1 for _ in plain_sim.simulate(
+                made, run_daq=True, keep_hits=False, keep_photons_beg=True))
+            torch.cuda.synchronize()
+            t_prop = time.time() - t0
+            check(n_alone == nevents, 'propagation alone lost events')
+
+            # the main path: gun -> generator -> simulate -> event file
+            reset()
+            t0 = time.time()
+            events = []
+            source = gun(start_id=len(written)) if pool else made
+            for ev in (sim if pool else plain_sim).simulate(
+                    source, run_daq=True, keep_photons_end=True,
+                    keep_hits=False, evid_start=len(written)):
+                writer.write_event(ev)
+                events.append(ev)
+            torch.cuda.synchronize()
+            t_all = time.time() - t0 + (0.0 if pool else t_gen)
+            k3 = mbvh_walk.walk_window_launches[1].launches
+            check(k3 > 0, 'the gun events never launched the window kernel')
+            launches += k3
+
+            counts = [ev.nphotons for ev in events]
+            for ev in events:
+                flags = ev.photons_end.flags
+                check(ev.nphotons > 0 and len(flags) == ev.nphotons,
+                      'a %s event has no photons' % particle)
+                check(bool(((flags & host.event.CHERENKOV) != 0).all())
+                      and not (flags & (host.event.SCINTILLATION
+                                        | host.event.BULK_REEMIT)).any(),
+                      'creation flags other than CHERENKOV in water')
+                terminal = ((flags & host.event.TERMINAL_FLAGS) != 0).mean()
+                check(terminal >= 0.99, 'only %.4f of a %s event ended '
+                      'terminal' % (terminal, particle))
+                check(int(np.asarray(ev.channels.hit).sum()) > 0,
+                      'a %s event hit no channel' % particle)
+            written += events
+            print(json.dumps({
+                'phase': 12, 'gun': '%s %g MeV' % (particle, ke),
+                'pool': pool, 'workers': NWORKERS if pool else 0,
+                'events': nevents, 'photons_per_event': counts,
+                'hit_channels': [int(np.asarray(ev.channels.hit).sum())
+                                 for ev in events],
+                'generation_events_per_s': nevents / t_gen,
+                'propagation_daq_events_per_s': nevents / t_prop,
+                'end_to_end_events_per_s': nevents / t_all,
+                'k3_launches': k3, 'card': card}), flush=True)
+        writer.close()
+        check([ev.id for ev in written] == list(range(len(written))),
+              'event ids are not 0..n-1: %s' % [ev.id for ev in written])
+        reader = NpzReader(out)
+        check(len(reader) == len(written), 'the event file holds %d of %d '
+              'events' % (len(reader), len(written)))
+        for i, ev in enumerate(written):
+            check(events_equal(ev, reader.read_event(i)),
+                  'event %d does not round-trip through the file' % i)
+        print('event file: %d events, %.1f MB, read back bit-equal'
+              % (len(written), os.path.getsize(out) / 1e6), flush=True)
+        os.remove(out)
+    finally:
+        sim.close()
+    if pool:
+        for p in workers:
+            p.join(timeout=10.0)
+        check(not any(p.is_alive() for p in workers),
+              'a generator worker outlived its pool')
+    return launches
+
+
+def rat_request(photons, eventid):
+    """A request as RAT's client packs it."""
+    p = photons
+    msg = np.asarray([len(p), eventid], dtype=np.uint32).tobytes()
+    for arr in (p.pos[:, 0], p.pos[:, 1], p.pos[:, 2],
+                p.dir[:, 0], p.dir[:, 1], p.dir[:, 2],
+                p.pol[:, 0], p.pol[:, 1], p.pol[:, 2], p.wavelengths, p.t):
+        msg += np.asarray(arr, dtype=np.double).tobytes()
+    return msg + np.zeros(len(p), dtype=np.uint32).tobytes()
+
+
+def rat_reply(msg):
+    """(event id, (n, 11) doubles, channel indices) of a RAT reply."""
+    n, eventid = np.frombuffer(msg[:8], dtype=np.uint32)
+    body = np.frombuffer(msg[8:8 + 88 * n], dtype=np.double).reshape(11, n)
+    chan = np.frombuffer(msg[8 + 88 * n:], dtype=np.uint32)
+    check(len(chan) == 2 * n, 'RAT reply length')
+    return int(eventid), body.T, chan[:n]
+
+
+def server_phase(gg, card, golden_det_frac):
+    """Phase 13; returns its K3 launches."""
+    sockets = gen_photon.HAVE_ZMQ
+    np.random.seed(G.GOLDEN_SEED + 13)
+    bombs = [host.photon_bomb(NREQUEST, G.WAVELENGTH, (0.0, 0.0, 0.0))
+             .photons_beg for _ in range(NREQUESTS)]
+    launches = 0
+    for cls in (ChromaServer, ChromaRATServer):
+        rat = cls is ChromaRATServer
+        address = 'ipc:///tmp/chroma_tpu_torch_smoke_' + uuid.uuid4().hex \
+            if sockets else None
+        server = cls(address, gg)
+        requests = [rat_request(ph, 40 + i) if rat else ph
+                    for i, ph in enumerate(bombs)]
+        try:
+            if sockets:
+                import zmq
+                thread = threading.Thread(target=lambda: [
+                    server.serve_one() for _ in range(NREQUESTS + 1)],
+                    daemon=True)
+                thread.start()
+                ctx = zmq.Context()
+                sock = ctx.socket(zmq.REQ)
+                sock.connect(address)
+
+                def ask(req):
+                    sock.send(req) if rat else sock.send_pyobj(req)
+                    check(sock.poll(300000), 'the server did not answer')
+                    return sock.recv() if rat else sock.recv_pyobj()
+            else:
+                ask = server.answer
+            ask(requests[0])                       # warm-up
+            reset()
+            t0 = time.time()
+            replies = [ask(req) for req in requests]
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            if sockets:
+                thread.join(timeout=60.0)
+                check(not thread.is_alive(), 'the server thread hangs')
+                sock.close(linger=0)
+                ctx.term()
+        finally:
+            server.close()
+        k3 = mbvh_walk.walk_window_launches[1].launches
+        check(k3 > 0, 'the server never launched the window kernel')
+        launches += k3
+        line = {'phase': 13, 'server': cls.__name__, 'sockets': sockets,
+                'requests': NREQUESTS, 'photons_per_request': NREQUEST,
+                'requests_per_s': NREQUESTS / seconds, 'k3_launches': k3,
+                'card': card}
+        if rat:
+            nhit = 0
+            for i, msg in enumerate(replies):
+                eventid, body, chan = rat_reply(msg)
+                check(eventid == 40 + i, 'RAT reply names event %d' % eventid)
+                check(bool((np.diff(chan.astype(np.int64)) >= 0).all())
+                      and (len(chan) == 0 or chan.max() < gg.nchannels),
+                      'RAT hits are not sorted by channel')
+                check(np.isfinite(body).all(), 'RAT reply not finite')
+                nhit += len(chan)
+            det_frac = nhit / float(NREQUESTS * NREQUEST)
+            line.update(det_frac=det_frac, golden_det_frac=golden_det_frac)
+            check(abs(det_frac - golden_det_frac) < 0.004,
+                  'served detection fraction %.5f against the golden %.5f'
+                  % (det_frac, golden_det_frac))
+        else:
+            for req, end in zip(requests, replies):
+                check(len(end) == len(req), 'reply of %d photons to a '
+                      'request of %d' % (len(end), len(req)))
+                terminal = ((end.flags & host.event.TERMINAL_FLAGS)
+                            != 0).mean()
+                check(terminal >= 0.99, 'only %.4f of a served request '
+                      'ended terminal' % terminal)
+        print(json.dumps(line), flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def timed_walks(module):
+    """While active, ``module.mbvh.intersect_mesh`` runs between two
+    device synchronizations; yields [seconds, calls]."""
+    spent = [0.0, 0]
+    fn = module.mbvh.intersect_mesh
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.time() - t0
+        spent[1] += 1
+        return out
+
+    module.mbvh.intersect_mesh = timed
+    try:
+        yield spent
+    finally:
+        module.mbvh.intersect_mesh = fn
+
+
+def rgb_of(pixels):
+    pixels = np.asarray(pixels).astype(np.int64)
+    return np.stack([(pixels >> 16) & 0xFF, (pixels >> 8) & 0xFF,
+                     pixels & 0xFF], axis=-1)
+
+
+def render_phase(gg, tiny, dev, card):
+    """Phase 14; returns its closest-hit launches."""
+    launches = 0
+    walks = mbvh_walk.closest_hit_launches
+    background = [0x66] * 3
+
+    # frames of the full demo
+    cam = Camera(gg, size=FRAME, alpha_depth=ALPHA_DEPTH)
+    nrays = FRAME[0] * FRAME[1]
+    cam.render_to_array()                           # warm-up
+    seconds = []
+    for _ in range(3):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frame = cam.render_to_array()
+        seconds.append(time.time() - t0)
+        check(walks.launches == ALPHA_DEPTH, 'a frame made %d K2 launches, '
+              'not alpha_depth = %d' % (walks.launches, ALPHA_DEPTH))
+        launches += walks.launches
+    check(frame.shape == (FRAME[1], FRAME[0], 3) and frame.dtype == np.uint8,
+          'frame shape %s' % (frame.shape,))
+    hit_share = float((frame != 0x66).any(axis=-1).mean())
+    check(hit_share > 0.05, 'the frame is all background')
+    for corner in (frame[0, 0], frame[0, -1], frame[-1, 0], frame[-1, -1]):
+        check(corner.tolist() == background, 'a corner pixel is not '
+              'background: %s' % corner.tolist())
+    with timed_walks(render_ops) as spent:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cam.render_to_array()
+        split_total = time.time() - t0
+    launches += spent[1]
+    reset()
+    cam.rotate(np.pi / 6, np.array([0.0, 0.0, 1.0]))
+    rotated = cam.render_to_array()
+    launches += walks.launches
+    check(walks.launches == ALPHA_DEPTH, 'the frame after rotate made %d K2 '
+          'launches' % walks.launches)
+    check(not np.array_equal(rotated, frame) and (rotated != 0x66).any(),
+          'the frame after rotate')
+    mean_s = float(np.mean(seconds))
+    print(json.dumps({
+        'phase': 14, 'scene': 'full demo', 'size': list(FRAME),
+        'alpha_depth': ALPHA_DEPTH, 'frame_seconds': seconds,
+        'frames_per_s': 1.0 / mean_s,
+        'rays_per_s': nrays * ALPHA_DEPTH / mean_s,
+        'k2_launches_per_frame': ALPHA_DEPTH,
+        'pixels_hit_share': hit_share,
+        'synced_frame_seconds': split_total,
+        'k2_share_of_synced_frame': spent[0] / split_total,
+        'card': card}), flush=True)
+
+    # the card's render against the CPU's (plain walker), a small view
+    pos, dirs = from_film(cam.viewpoint, axis1=cam.axis1, axis2=cam.axis2,
+                          size=SMALL_FRAME, width=cam.FILM_WIDTH,
+                          focal_length=cam.FOCAL_LENGTH)
+    pos = torch.from_numpy(pos.astype(np.float32))
+    dirs = torch.from_numpy(dirs.astype(np.float32))
+    reset()
+    on_card = rgb_of(render_ops.render(pos.to(dev), dirs.to(dev), gg.geom,
+                                       alpha_depth=ALPHA_DEPTH).cpu())
+    launches += walks.launches
+    t0 = time.time()
+    on_cpu = rgb_of(render_ops.render(pos, dirs, gg.geom.to('cpu'),
+                                      alpha_depth=ALPHA_DEPTH))
+    close = (np.abs(on_card - on_cpu) <= 2).all(axis=-1).mean()
+    print('render %dx%d, full demo, card against CPU tensors (plain walker, '
+          '%.1f s): %.5f of pixels within 2 of 255 in every channel'
+          % (SMALL_FRAME + (time.time() - t0, close)), flush=True)
+    check(close >= 0.995, 'only %.5f of pixels agree with the CPU render'
+          % close)
+
+    # a flat mesh (K1): the silhouette of a red sphere
+    sphere = host.Geometry(host.vacuum)
+    sphere.add_solid(host.Solid(host.make.sphere(100.0, nsteps=24),
+                                host.vacuum, host.vacuum, color=0x00ff0000))
+    sphere.flatten()
+    size = (64, 48)
+    pos, dirs = from_film((0.0, -500.0, 0.0), size=size)
+    rays = render_ops.GPURays(pos, dirs)
+    reset()
+    flat = gpu.GPUGeometry(sphere)
+    check(not flat.geom.mbvh_instanced, 'the sphere packed instanced')
+    img = rgb_of(rays.snapshot(flat)).reshape(size[0], size[1], 3)
+    launches += walks.launches
+    center, corner = img[size[0] // 2, size[1] // 2], img[0, 0]
+    check(walks.launches == ALPHA_DEPTH, 'the sphere frame made %d K1 '
+          'launches' % walks.launches)
+    check(center[0] > 100 and center[2] < 50
+          and corner.tolist() == background,
+          'sphere silhouette: center %s, corner %s' % (center, corner))
+    print('render flat sphere (K1): center %s, corner %s' % (center, corner))
+
+    # color_solids: every other PMT opaque red
+    channel = gg.det.solid_id_to_channel_index.cpu().numpy()
+    pmts = np.nonzero(channel >= 0)[0]
+    solid_hit = np.zeros(len(channel), dtype=bool)
+    solid_hit[pmts[::2]] = True
+    reset()
+    touched = torch.zeros(nrays, dtype=torch.bool, device=dev)
+    chosen = torch.from_numpy(solid_hit).to(dev)
+    p = cam.rays.pos
+    d = cam.rays.dir / torch.linalg.norm(cam.rays.dir, dim=-1, keepdim=True)
+    for _ in range(ALPHA_DEPTH):
+        res = tmbvh.intersect_mesh(p, d, gg.geom)
+        hit = res['triangle'] >= 0
+        solid = gg.geom.solid_id_map[torch.clamp(res['triangle'], min=0)
+                                     .long()].long()
+        touched |= hit & chosen[solid]
+        zero = torch.zeros((), device=dev)
+        p = p + torch.where(hit, res['distance'] + 1e-3, zero)[:, None] * d
+    before = cam.render_pixels()
+    original = gg.geom
+    gg.color_solids(solid_hit, np.full(len(channel), 0x00ff0000, np.uint32))
+    after = cam.render_pixels()
+    gg.geom = original
+    changed = before != after
+    touched = touched.cpu().numpy()
+    check(changed.any() and not (changed & ~touched).any(),
+          'color_solids changed %d pixels, %d of them off the recoloured '
+          'solids' % (changed.sum(), (changed & ~touched).sum()))
+    check(np.array_equal(cam.render_pixels(), before),
+          'the colors were not restored')
+    launches += walks.launches
+    print('color_solids, %d of %d PMTs: %d pixels changed, all among the '
+          '%d whose rays meet a recoloured solid'
+          % (solid_hit.sum(), len(pmts), changed.sum(), touched.sum()),
+          flush=True)
+
+    # the hybrid photon-map renderer on demo.tiny, from its center
+    reset()
+    t0 = time.time()
+    tcam = Camera(gpu.GPUDetector(tiny, dev), size=SMALL_FRAME)
+    tcam.viewpoint = tcam.mesh_center.copy()
+    tcam._update_rays()
+    image = tcam.render_hybrid_to_array(light_position=tcam.mesh_center,
+                                        nlookup=2)
+    torch.cuda.synchronize()
+    lookup = [t.cpu().numpy() for t in tcam._hybrid.lookup]
+    check(tcam._hybrid.nlookup_calls == 2 and image.any()
+          and all(np.isfinite(t).all() and (t >= 0).all() for t in lookup)
+          and sum(t.sum() for t in lookup) > 0,
+          'the hybrid render on demo.tiny')
+    launches += walks.launches
+    print('hybrid render, demo.tiny, 2 lookup passes and one %dx%d image: '
+          '%.2f s, %d closest-hit launches, lookup sums %.1f and %.1f, '
+          '%.4f of pixels lit (%s)'
+          % (SMALL_FRAME + (time.time() - t0, walks.launches,
+                            lookup[0].sum(), lookup[1].sum(),
+                            float(image.any(axis=-1).mean()), card)),
+          flush=True)
+    return launches
+
+
 def main():
+    t_start = time.time()
     # ---- 1. device ----------------------------------------------------
     check(torch.cuda.is_available(),
           'torch.cuda.is_available() is False: this needs an NVIDIA card')
@@ -596,13 +1061,6 @@ def main():
 
     # ---- 6. the main path --------------------------------------------
     # each path runs with the launch counts set to 0 just before it
-    counters = [mbvh_walk.closest_hit_launches,
-                *mbvh_walk.walk_window_launches.values()]
-
-    def reset():
-        for c in counters:
-            c.reset()
-
     reset()
     ray_rates = benchmark.intersect(gg, number=3, nphotons=nrays)
     ch_launches = mbvh_walk.closest_hit_launches.launches
@@ -839,6 +1297,13 @@ def main():
                                           len(snaps), track_launches),
           flush=True)
     ch_launches += track_launches
+
+    # ---- 12-14. the command-line paths on the full demo ---------------
+    w_launches[1] += gun_phase(gg, card)
+    w_launches[1] += server_phase(gg, card, float(np.load(os.path.join(
+        GOLDEN_DIR, 'demo_full_pdf.npz'))['det_frac']))
+    ch_launches += render_phase(gg, tiny, dev, card)
+    print('chip_smoke: %.1f s in all' % (time.time() - t_start))
 
     print('nvidia-smi name, power.limit: %s' % card)
 

@@ -31,6 +31,25 @@ def from_uint4(nodes):
     return nodes.view(np.uint32).reshape(-1, 4)
 
 
+def unpack_nodes(nodes):
+    """Unpack packed nodes into a record array of AABB halfword fields.
+
+    Returns fields xlo/xhi/ylo/yhi/zlo/zhi (uint16), child (uint32),
+    nchild (uint16).
+    """
+    unpacked_dtype = np.dtype([('xlo', np.uint16), ('xhi', np.uint16),
+                               ('ylo', np.uint16), ('yhi', np.uint16),
+                               ('zlo', np.uint16), ('zhi', np.uint16),
+                               ('child', np.uint32), ('nchild', np.uint16)])
+    unpacked = np.empty(shape=len(nodes), dtype=unpacked_dtype)
+    for axis in 'xyz':
+        unpacked[axis + 'lo'] = nodes[axis] & 0xFFFF
+        unpacked[axis + 'hi'] = nodes[axis] >> 16
+    unpacked['child'] = nodes['w'] & ~NCHILD_MASK
+    unpacked['nchild'] = nodes['w'] >> CHILD_BITS
+    return unpacked
+
+
 class WorldCoords(object):
     """Transformation between world floats and 16-bit fixed point."""
 
@@ -55,8 +74,25 @@ class BVH(object):
         self.layer_offsets = list(layer_offsets)
         self.layer_bounds = list(layer_offsets) + [len(nodes)]
 
+    def get_layer(self, layer_number):
+        layer_slice = slice(self.layer_bounds[layer_number],
+                            self.layer_bounds[layer_number + 1])
+        return BVHLayerSlice(world_coords=self.world_coords,
+                             nodes=self.nodes[layer_slice])
+
     def layer_count(self):
         return len(self.layer_offsets)
+
+    def __len__(self):
+        return len(self.nodes)
+
+
+class BVHLayerSlice(object):
+    """A view of one depth layer of a BVH (shares node storage)."""
+
+    def __init__(self, world_coords, nodes):
+        self.world_coords = world_coords
+        self.nodes = nodes
 
     def __len__(self):
         return len(self.nodes)

@@ -8,6 +8,8 @@ the caller names it.  Photon batches are not padded: the
 JAX package pads to powers of two for XLA's compile cache, which eager
 PyTorch does not need.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -50,6 +52,28 @@ class GPUGeometry(object):
                                   wavelengths=wavelengths, times=times)
         self.det = None
         self.solid_id_map = self.geom.solid_id_map
+
+    def device_usage_str(self):
+        total = sum(v.numel() * v.element_size()
+                    for v in vars(self.geom).values()
+                    if isinstance(v, torch.Tensor))
+        return 'geometry tables: %.1f MB' % (total / 1e6)
+
+    def print_device_usage(self):
+        print(self.device_usage_str())
+
+    def color_solids(self, solid_hit, colors):
+        """Recolor all triangles of hit solids (reference:
+        chroma/gpu/geometry.py color_solids).  ``colors`` are uint32
+        per solid; the table holds their bits as int32."""
+        dev = self.geom.colors.device
+        solid_hit = torch.from_numpy(
+            np.ascontiguousarray(solid_hit, dtype=bool)).to(dev)
+        colors = torch.from_numpy(np.ascontiguousarray(
+            colors, dtype=np.uint32).view(np.int32)).to(dev)
+        tri_solid = self.geom.solid_id_map.long()
+        self.geom = dataclasses.replace(self.geom, colors=torch.where(
+            solid_hit[tri_solid], colors[tri_solid], self.geom.colors))
 
 
 class GPUDetector(GPUGeometry):

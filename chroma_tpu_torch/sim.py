@@ -1,10 +1,11 @@
 """Simulation: batch photon bundles, propagate them, digitize the hits,
 and fill or evaluate the PDFs a likelihood fit reads.
 
-Counterpart of chroma_tpu/sim.py for photon input (``geant4_processes=0``)
-on one device.  The event batching and de-batching is the JAX package's;
-photon generation from particle vertices and multi-device meshes are not
-ported yet.
+Counterpart of chroma_tpu/sim.py on one device.  The event batching and
+de-batching is the JAX package's.  Photon generation from particle
+vertices runs in a pool of worker processes (ZMQ), as there; set
+``geant4_processes=0`` (the default here) to feed Photons directly.
+Multi-device meshes are not ported yet.
 """
 import os
 import time
@@ -12,6 +13,7 @@ import time
 import numpy as np
 
 from chroma_tpu_torch import event
+from chroma_tpu_torch import generator
 from chroma_tpu_torch import itertoolset
 from chroma_tpu_torch import gpu
 from chroma_tpu_torch.device import resolve
@@ -38,22 +40,26 @@ def _photon_tracks(tracking, start, end):
 
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
-                 device=None, driver='fused', photon_tracking=False):
+                 device=None, driver='fused', photon_tracking=False,
+                 particle_tracking=False):
         """``detector``: a Geometry/Detector (flattened here if needed),
         a geometry string for chroma_tpu_torch.loader, or packed tables
         already on a device (a ``gpu.GPUDetector`` or ``gpu.GPUGeometry``,
         for example from ``GPUDetector.from_table_cache``: nothing is
-        packed again and ``device`` is theirs).  Photon generation from
-        vertices (``geant4_processes`` > 0) is not ported.  ``driver`` is
+        packed again and ``device`` is theirs; they must hold their host
+        ``geometry`` when ``geant4_processes`` > 0, for its
+        ``detector_material``).  ``geant4_processes`` > 0 starts that
+        many photon-generator workers (``generator.G4ParallelGenerator``)
+        for Vertex input and photon-less Events; ``close()`` ends them.
+        The JAX package defaults to 4; the port defaults to 0, because
+        its workers are spawned (a fork is unsafe once CUDA is up), which
+        costs seconds, and callers that feed Photons should not pay for
+        a pool they never use.  ``particle_tracking`` keeps the
+        generator's particle steps on the vertices.  ``driver`` is
         ``GPUPhotons.propagate``'s: 'fused' (the on-deck lane-pool
         driver) or 'steps' (the step loop).  ``photon_tracking`` runs
         the tracking mode instead and fills each event's
         ``photon_tracks``."""
-        if geant4_processes:
-            raise NotImplementedError(
-                'photon generation from vertices (geant4_processes > 0) is '
-                'not ported to chroma_tpu_torch; pass Photons or Events '
-                'with photons_beg')
         self.driver = driver
         self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else seed
@@ -73,6 +79,15 @@ class Simulation(object):
                 self.gpu_geometry = gpu.GPUDetector(detector, self.device)
             else:
                 self.gpu_geometry = gpu.GPUGeometry(detector, self.device)
+        self.photon_generator = None
+        if geant4_processes > 0:
+            if self.detector is None:
+                raise ValueError(
+                    'geant4_processes > 0 needs the host detector for its '
+                    'detector_material; these packed tables carry none')
+            self.photon_generator = generator.G4ParallelGenerator(
+                geant4_processes, self.detector.detector_material,
+                base_seed=self.seed, tracking=particle_tracking)
         self.is_detector = self.gpu_geometry.det is not None
         if self.is_detector:
             self.gpu_daq = gpu.GPUDaq(self.gpu_geometry)
@@ -81,6 +96,18 @@ class Simulation(object):
         self.rng_states = gpu.get_rng_states(seed=self.seed,
                                              device=self.device)
         self.pdf_config = None
+
+    def close(self):
+        """End the photon-generator workers, if any."""
+        if self.photon_generator is not None:
+            self.photon_generator.close()
+            self.photon_generator = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def _simulate_batch(self, batch_events, keep_photons_beg=False,
                         keep_photons_end=False, keep_hits=True,
@@ -139,9 +166,9 @@ class Simulation(object):
                  keep_photons_end=False, keep_hits=True,
                  keep_flat_hits=True, run_daq=False, max_steps=100,
                  photons_per_batch=1000000, evid_start=0):
-        """Yield simulated Events for an iterable of Photons or of Events
-        that carry ``photons_beg`` (reference: chroma/sim.py:141)."""
-        iterable = self._photon_events(iterable)
+        """Yield simulated Events for an iterable of Photons / Vertex /
+        Event objects (reference: chroma/sim.py:141)."""
+        iterable = self._photon_events(iterable, regenerate=True)
         nphotons = 0
         batch_events = []
         evid = evid_start
@@ -165,27 +192,32 @@ class Simulation(object):
 
     # ------------------------------------------------------------------
 
-    def _photon_events(self, iterable):
+    def _photon_events(self, iterable, regenerate=False):
         """An iterable of Events with ``photons_beg`` filled, from a bare
-        Photons bundle (ONE event, as in ``simulate``), an iterable of
-        Photons or an iterable of such Events."""
+        Photons bundle (ONE event, as in ``simulate``) or an iterable of
+        Photons, Vertex or Event objects.  Events that already carry
+        photons (a ``Photons`` in ``photons_beg``: the particle guns park
+        their vertex list there) pass as they are, unless ``regenerate``
+        and there is a generator pool (``simulate`` then makes their
+        photons anew from their vertices, as the JAX package's does)."""
         if isinstance(iterable, event.Photons):
             first_element, iterable = iterable, [iterable]
         else:
             first_element, iterable = itertoolset.peek(iterable)
-        return self._ensure_photon_events(first_element, iterable)
-
-    def _ensure_photon_events(self, first_element, iterable):
         if isinstance(first_element, event.Photons):
             return (event.Event(photons_beg=x) for x in iterable)
-        if isinstance(first_element, event.Event) \
-                and first_element.photons_beg is not None:
+        if isinstance(first_element, event.Vertex):
+            iterable = (event.Event(vertices=[v]) for v in iterable)
+        elif not isinstance(first_element, event.Event):
+            raise TypeError('cannot simulate %r' % type(first_element))
+        elif isinstance(first_element.photons_beg, event.Photons) and not (
+                regenerate and self.photon_generator is not None):
             return iterable
-        if isinstance(first_element, (event.Event, event.Vertex)):
-            raise NotImplementedError(
-                'chroma_tpu_torch simulates Photons or Events that carry '
-                'photons_beg; photon generation is not ported')
-        raise TypeError('cannot simulate %r' % type(first_element))
+        if self.photon_generator is None:
+            raise RuntimeError('events carry no photons and the '
+                               'simulation was created with '
+                               'geant4_processes=0')
+        return self.photon_generator.generate_events(iterable)
 
     def _acquire(self, gpu_daq, *photon_sets):
         """One readout of ``gpu_daq`` over (photons, weight) pairs."""

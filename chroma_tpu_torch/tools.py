@@ -53,3 +53,30 @@ def argsort_direction(dir):
                         0, 1023)
     morton = interleave3d(quantized, 10)
     return np.argsort(morton)
+
+
+def from_film(position, axis1=(0, 0, 1), axis2=(1, 0, 0), size=(800, 600),
+              width=35.0, focal_length=18.0):
+    """Generate camera rays through a pinhole onto a film plane.
+
+    Returns (positions, directions) with one ray per pixel,
+    pixel-major.  (reference: chroma/tools.py:195)
+    """
+    position = np.asarray(position, dtype=float)
+    axis1 = normalize(axis1)
+    axis2 = normalize(axis2)
+    height = width * size[1] / float(size[0])
+
+    x = np.linspace(-width / 2, width / 2, size[0])
+    y = np.linspace(-height / 2, height / 2, size[1])
+    xx, yy = np.meshgrid(x, y, indexing='ij')
+
+    normal = np.cross(axis1, axis2)
+    # film sits behind the pinhole; rays run from film through pinhole
+    grid = (position
+            - xx.ravel()[:, None] * axis2
+            - yy.ravel()[:, None] * axis1
+            - normal * focal_length)
+    focal_point = position
+    directions = normalize(focal_point - grid)
+    return grid, directions

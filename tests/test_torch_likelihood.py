@@ -194,10 +194,11 @@ def test_ufloat_arithmetic():
 
 
 def test_eval_pdf_rejects_vertices(psim):
-    """Photon generation from vertices is not ported: asked for plainly."""
+    """Vertex input needs the generator pool: a Simulation made with
+    ``geant4_processes=0`` says so plainly, as the JAX package's does."""
     ev = event.Event(vertices=[event.Vertex('e-', (0, 0, 0), (1, 0, 0),
                                             1.0)])
-    with pytest.raises(NotImplementedError, match='photons_beg'):
+    with pytest.raises(RuntimeError, match='geant4_processes=0'):
         psim.create_pdf([ev], 16, TRANGE, 5, QRANGE)
     with pytest.raises(TypeError):
         list(psim.simulate([3]))

@@ -122,14 +122,19 @@ def test_simulate_step_driver_matches_jax(jax_events):
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and running a small propagation
+    """Importing every module of the port (the Geant4 backend under the
+    fake bindings) and chip_smoke.py, and running a small propagation
     with DAQ (the on-deck driver, one and two slots, and the step loop)
-    through Simulation, a likelihood evaluation, a PDF fill and a tracked
-    propagation must leave jax and every module of the JAX package
+    through Simulation, a likelihood evaluation, a PDF fill, a tracked
+    propagation, a gun event through the generator pool into an event
+    file, a served request in both protocols, a rendered frame and a
+    hybrid render must leave jax and every module of the JAX package
     chroma_tpu out of sys.modules."""
     code = '\n'.join([
-        'import importlib, pkgutil, sys',
+        'import importlib, itertools, os, pkgutil, sys, tempfile',
         'import numpy as np',
+        'import tests.fake_geant4 as fake_geant4',
+        "sys.modules['geant4_pybind'] = fake_geant4.make_fake()",
         'import chroma_tpu_torch',
         'for m in pkgutil.walk_packages(chroma_tpu_torch.__path__,',
         "                               'chroma_tpu_torch.'):",
@@ -157,6 +162,41 @@ def test_port_never_imports_jax():
         'tracks = gpu.GPUPhotons(ph, "cpu").propagate(',
         '    sim.gpu_geometry, sim.rng_states, max_steps=3, track=True)',
         'assert len(tracks[1]) >= 2',
+        "names = {m.name for m in pkgutil.walk_packages(",
+        "    chroma_tpu_torch.__path__, 'chroma_tpu_torch.')}",
+        "for name in ('pi0', 'camera', 'histogram.histogram',",
+        "             'generator.vertex', 'generator.trackgen',",
+        "             'generator.g4gen', 'io.npz', 'cli.sim', 'cli.server',",
+        "             'cli.cam', 'ops.render', 'ops.hybrid'):",
+        "    assert 'chroma_tpu_torch.' + name in names, name",
+        "    assert 'chroma_tpu_torch.' + name in sys.modules, name",
+        'import chip_smoke',
+        'from chroma_tpu_torch.generator.photon import HAVE_ZMQ',
+        'from chroma_tpu_torch.generator.vertex import constant_particle_gun',
+        'from chroma_tpu_torch.io.npz import NpzReader, NpzWriter',
+        'from chroma_tpu_torch.cli.server import ChromaRATServer, ChromaServer',
+        'from chroma_tpu_torch.camera import Camera',
+        'if HAVE_ZMQ:',
+        "    gsim = Simulation(sim.gpu_geometry, seed=3, geant4_processes=1)",
+        "    gun = constant_particle_gun('e-', (0, 0, 0), (1, 0, 0), 5.0)",
+        '    gev = list(gsim.simulate(itertools.islice(gun, 2), run_daq=True))',
+        '    gsim.close()',
+        '    assert len(gev) == 2 and gev[0].nphotons > 0',
+        "    path = os.path.join(tempfile.mkdtemp(), 'ev.npz')",
+        '    with NpzWriter(path) as w:',
+        '        w.write_event(gev[0])',
+        '    assert len(NpzReader(path)) == 1',
+        'assert len(ChromaServer(None, sim.gpu_geometry).answer(ph)) == 500',
+        'msg = chip_smoke.rat_request(ph, 3)',
+        'reply = ChromaRATServer(None, sim.gpu_geometry).answer(msg)',
+        'assert chip_smoke.rat_reply(reply)[0] == 3',
+        'cam = Camera(sim.gpu_geometry, size=(16, 12))',
+        'assert cam.render_to_array().shape == (12, 16, 3)',
+        'from chroma_tpu_torch.ops.hybrid import HybridRenderer',
+        'hyb = HybridRenderer(sim.gpu_geometry)',
+        'hyb.ntriangles = 64',
+        'hyb.update_xyz_lookup((0.0, 0.0, 0.0))',
+        'assert hyb.render(cam.rays.pos, cam.rays.dir).shape == (192, 3)',
         "bad = sorted(m for m in sys.modules if m in ('jax', 'chroma_tpu')",
         "             or m.startswith(('jax.', 'jaxlib', 'flax',",
         "                              'chroma_tpu.')))",
@@ -175,7 +215,8 @@ def test_port_never_imports_jax():
     'from_table_cache', 'get_rng_states', 'Simulation',
     'tables_from_numpy', 'pack_geometry', 'pack_detector', 'load_tables',
     'make_photon_state', 'ondeck_empty', 'walker_state_from_jax',
-    'load_photons'])
+    'load_photons', 'GPURays', 'Camera', 'ChromaServer', 'ChromaRATServer',
+    'cli_sim', 'cli_cam', 'cli_server'])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no card and no ``device`` argument every entry point and
     every public function that makes tensors raises (naming
@@ -184,8 +225,13 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     from chroma_tpu_torch import benchmark, gpu, host
     from chroma_tpu_torch.ops import geometry_pack, mbvh_walk, propagate, \
         table_cache
+    from chroma_tpu_torch.camera import Camera
+    from chroma_tpu_torch.cli import cam, server, sim
+    from chroma_tpu_torch.ops.render import GPURays
     from chroma_tpu_torch.sim import Simulation
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    scene = '@chroma_tpu_torch.host.tie_geometry'
+
     np.random.seed(1)
     ph = host.photon_bomb(10, 400.0, (0.0, 0.0, 0.0)).photons_beg
     geo = host.mesh_geometry(host.make.sphere(10.0, nsteps=8))
@@ -207,7 +253,16 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
                 walker_state_from_jax=lambda: mbvh_walk.walker_state_from_jax(
                     {}, 2, False),
                 load_photons=lambda: benchmark.load_photons(
-                    number=1, nphotons=10))[entry]
+                    number=1, nphotons=10),
+                GPURays=lambda: GPURays(ph.pos, ph.dir),
+                Camera=lambda: Camera(geo, size=(4, 3)),
+                ChromaServer=lambda: server.ChromaServer(None, geo),
+                ChromaRATServer=lambda: server.ChromaRATServer(None, geo),
+                cli_sim=lambda: sim.main([scene, '-g', '0']),
+                cli_cam=lambda: cam.main([scene, '-o', 'unwritten.png']),
+                cli_server=lambda: server.main(
+                    [scene, '-a', 'ipc:///tmp/chroma_tpu_torch_unbound']))[
+                        entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     # the CPU, named, still works

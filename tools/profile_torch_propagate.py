@@ -2,7 +2,7 @@
 
     python tools/profile_torch_propagate.py [--nphotons N] [--detector full]
         [--driver fused|steps] [--od-slots 1|2] [--width W]
-        [--service-every K] [--sweep] [--eval-pdf]
+        [--service-every K] [--sweep] [--eval-pdf] [--render]
 
 Loads the packed tables from the table cache ('full' is filled by
 ``chip_smoke.py``, under .cache/chroma_tpu in the checkout unless
@@ -16,6 +16,11 @@ the run, and the ten largest device kernels.
 likelihood path: weighted, scatter-stratified propagation, DAQ at ndaq
 32, variable-bin PDF) at ``benchmark.pdf_eval``'s size: 20,000 photons,
 nreps 2, after one warm-up evaluation.
+
+``--render`` profiles one frame of ``camera.Camera`` instead (800x600,
+alpha_depth 10, from the default viewpoint, after one warm-up frame): the
+closest-hit kernel's share of the device's busy time against shading and
+compositing.
 
 ``--sweep`` instead times the on-deck driver (``benchmark.propagate``,
 one warm-up and two timed runs each) over lane widths and service
@@ -115,6 +120,25 @@ def profile_eval_pdf(gg, card, nphotons=20000, nreps=2, ndaq=32):
     report(prof, wall)
 
 
+def profile_render(gg, card, size=(800, 600), alpha_depth=10):
+    from chroma_tpu_torch.camera import Camera
+    cam = Camera(gg, size=size, alpha_depth=alpha_depth)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cam.render_to_array()
+        return time.time() - t0
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    print('%s: one frame, %dx%d, alpha_depth %d: wall %.4f s under the '
+          'profiler' % ((card,) + tuple(size) + (alpha_depth, wall)))
+    report(prof, wall)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--nphotons', type=int, default=1 << 20)
@@ -127,6 +151,7 @@ def main():
                         default=fused.SERVICE_EVERY)
     parser.add_argument('--sweep', action='store_true')
     parser.add_argument('--eval-pdf', action='store_true')
+    parser.add_argument('--render', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA card')
@@ -139,6 +164,8 @@ def main():
         return sweep(gg, args, card)
     if args.eval_pdf:
         return profile_eval_pdf(gg, card)
+    if args.render:
+        return profile_render(gg, card)
     photons = benchmark._isotropic_photons(args.nphotons)
     rng = gpu.get_rng_states(seed=1, device=dev)
     kw = _driver_kw(args)
