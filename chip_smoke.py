@@ -66,7 +66,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      exactly ``alpha_depth`` K2 launches a frame; the split of a frame
      into K2 and shading), a 160x120 view against the same ``render`` on
      CPU tensors (plain walker), a flat sphere (K1), ``color_solids``
-     on half of the PMTs, and ``HybridRenderer`` on demo.tiny.
+     on half of the PMTs, and ``HybridRenderer`` on demo.tiny;
+ 15. a SNO-like detector (``sno_like_gdml``: 9,438 PMTs, ~20.5M
+     triangles) written as GDML + RATDB and loaded through the port only
+     (``RATGeoLoader``, ``add_pmt_info``, ``build_detector``,
+     ``flatten``; host seconds and peak RSS printed), packed flat into
+     the table cache; 500,000 center rays through ``intersect_mesh`` (K1)
+     bit-equal to the plain walker and timed; one flat K3 window at
+     65,536 lanes bit-equal and timed; 1,048,576 photons through both
+     drivers (>= 99% terminal, something detected, every hit channel a
+     channel); then ``chroma-torch-geo save``, ``-bvh create/stat/
+     optimize`` and ``-sim`` to an npz file on a 100-PMT copy.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
 
@@ -80,10 +90,12 @@ published peaks of an H100 SXM at 700 W.  No PyTorch call computes a
 BVH walk, so no kernel has a library time.
 """
 import contextlib
+import importlib.util
 import itertools
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import threading
@@ -99,6 +111,9 @@ import torch  # noqa: E402
 
 from chroma_tpu_torch import _build, benchmark, gpu, host  # noqa: E402
 from chroma_tpu_torch import referee  # noqa: E402
+from chroma_tpu_torch.cli import bvh as cli_bvh, geo as cli_geo  # noqa: E402
+from chroma_tpu_torch.cli import sim as cli_sim  # noqa: E402
+from chroma_tpu_torch.detector import Detector  # noqa: E402
 from chroma_tpu_torch.camera import Camera  # noqa: E402
 from chroma_tpu_torch.cli.server import (ChromaRATServer,  # noqa: E402
                                          ChromaServer)
@@ -113,6 +128,7 @@ from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
 from chroma_tpu_torch.likelihood import Likelihood  # noqa: E402
 from chroma_tpu_torch.ops.propagate import TERMINAL, i32  # noqa: E402
+from chroma_tpu_torch.rat import RATGeoLoader  # noqa: E402
 from chroma_tpu_torch.sim import Simulation  # noqa: E402
 from tools import golden_config as G  # noqa: E402
 
@@ -133,6 +149,8 @@ FRAME = (800, 600)      # Camera's default size
 SMALL_FRAME = (160, 120)  # the view held against the CPU's render
 ALPHA_DEPTH = 10
 LONG_WINDOW = 4096      # iterations: every walk drains well before
+SNO_SMALL_NPMT = 100    # the SNO-like detector the commands save and run
+SNO_GUN_EVENTS = 4      # chroma-torch-sim events on it
 # ray counts at the edges of a warp (one warp walks one ray) and of a
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
 GROUP_EDGES = (1, 31, 33, 85, 129, 341, 1001)
@@ -182,6 +200,213 @@ RAY_OUT_BYTES = 4 + 4 + 12 + 4 + 1  # triangle, distance, normal, mat, inc
 def check(ok, what):
     if not ok:
         raise SystemExit('chip_smoke FAILED: %s' % what)
+
+
+# ---- a SNO-like detector in GDML + RATDB -------------------------------
+# Layout from J. Boger et al., "The Sudbury Neutrino Observatory", Nucl.
+# Instrum. Meth. A449 (2000) 172: a 6.0 m acrylic vessel (5.5 cm wall)
+# holding heavy water, in light water, and 9,438 inward-looking PMTs with
+# 27 cm light concentrators on a 8.89 m sphere.  PMTs are placed on a
+# Fibonacci sphere, not on the paper's geodesic panels.  The vessel is an
+# acrylic orb holding a heavy-water orb: the GDML loaders of both
+# packages mesh a hollow <sphere> inside out.
+SNO_NPMT = 9438
+SNO_PSUP_RADIUS = 8890.0        # mm, PMT origins
+SNO_AV_RADIUS = 6000.0          # mm, outer radius of the acrylic vessel
+SNO_AV_WALL = 55.0              # mm
+# PMT body (glass, detecting skin): a 9-plane polycone along local +z,
+# the face toward the center at z > 0
+SNO_BODY_Z = (-250.0, -180.0, -130.0, -90.0, -60.0, -30.0, 0.0, 25.0, 40.0)
+SNO_BODY_R = (35.0, 42.0, 50.0, 80.0, 97.0, 101.0, 98.0, 80.0, 50.0)
+# light concentrator (aluminium, polished reflective skin): a hollow
+# polycone 2 mm thick, 270 mm across at its mouth, clear of the body
+SNO_CONC_Z = (-40.0, 10.0, 60.0, 110.0)
+SNO_CONC_RMIN = (108.0, 115.0, 125.0, 133.0)
+SNO_CONC_WALL = 2.0
+_ENERGIES = (1.5e-6, 2.5e-6, 3.5e-6, 5.0e-6)     # MeV: 827 to 248 nm
+
+
+def _gdml_matrix(name, values):
+    return ('    <matrix name="%s" coldim="2" values="%s"/>\n'
+            % (name, ' '.join('%r %r' % (e, v)
+                              for e, v in zip(_ENERGIES, values))))
+
+
+def _fibonacci_sphere(n, radius):
+    """(n, 3) points spread evenly over a sphere (golden-angle spiral)."""
+    i = np.arange(n) + 0.5
+    z = 1.0 - 2.0 * i / n
+    r = np.sqrt(1.0 - z * z)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i
+    return radius * np.column_stack([r * np.cos(phi), r * np.sin(phi), z])
+
+
+def sno_pmt_placements(npmt):
+    """(positions (n, 3) mm, GDML Euler angles (n, 3) rad) of ``npmt``
+    PMTs facing the center.  Positions are rounded to the 1e-6 mm the
+    GDML and RATDB files carry.  The loader turns angles (a, b, c) into
+    R = Rx(a) Ry(b) Rz(c) with ``make_rotation_matrix`` (a rotation by
+    -angle about each axis) and places vertices at R v: a = atan2(dy, dz)
+    and b = -asin(dx) send local +z to d = -pos / |pos|."""
+    pos = np.round(_fibonacci_sphere(npmt, SNO_PSUP_RADIUS), 6)
+    d = -pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    angles = np.column_stack([np.arctan2(d[:, 1], d[:, 2]),
+                              -np.arcsin(np.clip(d[:, 0], -1.0, 1.0)),
+                              np.zeros(npmt)])
+    return pos, angles
+
+
+def sno_like_gdml(npmt, path):
+    """Write a SNO-like detector of ``npmt`` PMTs as ``path`` (GDML) and
+    ``path`` with '.ratdb.json' (RATDB: a GEO pmtarray and its PMTINFO
+    table holding the same positions).  Returns (gdml path, ratdb
+    path)."""
+    pos, angles = sno_pmt_placements(npmt)
+    out = ['<?xml version="1.0" encoding="UTF-8" standalone="no" ?>\n',
+           '<gdml>\n  <define>\n']
+    for name, values in (
+            ('RI_WATER', (1.33, 1.335, 1.34, 1.36)),
+            ('ABS_WATER', (20000.0, 60000.0, 40000.0, 5000.0)),
+            ('RS_WATER', (200000.0, 90000.0, 60000.0, 15000.0)),
+            ('ABS_D2O', (30000.0, 90000.0, 60000.0, 8000.0)),
+            ('RI_ACRYLIC', (1.49, 1.495, 1.505, 1.53)),
+            ('ABS_ACRYLIC', (5000.0, 5000.0, 2000.0, 100.0)),
+            ('RI_GLASS', (1.47, 1.475, 1.48, 1.5)),
+            ('ABS_OPAQUE', (0.01, 0.01, 0.01, 0.01)),
+            ('EFF_PMT', (0.02, 0.2, 0.25, 0.1)),
+            ('REFL_CONC', (0.85, 0.85, 0.8, 0.7))):
+        out.append(_gdml_matrix(name, values))
+    for i, (p, a) in enumerate(zip(pos, angles)):
+        out.append('    <position name="pmtpos%d" unit="mm" x="%r" y="%r" '
+                   'z="%r"/>\n' % (i, *map(float, p)))
+        out.append('    <rotation name="pmtrot%d" unit="rad" x="%r" y="%r" '
+                   'z="%r"/>\n' % (i, *map(float, a)))
+    out.append('  </define>\n  <materials>\n')
+    # element mass fractions (what the track generator's energy loss
+    # reads); deuterium stands as H
+    for name, density, elements, props in (
+            ('water', 1.0, (('H', 0.1119), ('O', 0.8881)),
+             (('RINDEX', 'RI_WATER'), ('ABSLENGTH', 'ABS_WATER'),
+              ('RSLENGTH', 'RS_WATER'))),
+            ('heavy_water', 1.105, (('H', 0.2011), ('O', 0.7989)),
+             (('RINDEX', 'RI_WATER'), ('ABSLENGTH', 'ABS_D2O'),
+              ('RSLENGTH', 'RS_WATER'))),
+            ('acrylic', 1.18, (('C', 0.5998), ('H', 0.0805), ('O', 0.3197)),
+             (('RINDEX', 'RI_ACRYLIC'), ('ABSLENGTH', 'ABS_ACRYLIC'))),
+            ('glass', 2.23, (('Si', 0.4674), ('O', 0.5326)),
+             (('RINDEX', 'RI_GLASS'), ('ABSLENGTH', 'ABS_OPAQUE'))),
+            ('aluminium', 2.7, (('Al', 1.0),), (('ABSLENGTH', 'ABS_OPAQUE'),))):
+        out.append('    <material name="%s">\n      <D value="%r" '
+                   'unit="g/cm3"/>\n' % (name, density))
+        for element, fraction in elements:
+            out.append('      <fraction n="%r" ref="%s"/>\n'
+                       % (fraction, element))
+        for prop, ref in props:
+            out.append('      <property name="%s" ref="%s"/>\n' % (prop, ref))
+        out.append('    </material>\n')
+    conc_planes = ''.join(
+        '      <zplane z="%r" rmin="%r" rmax="%r"/>\n'
+        % (z, r, r + SNO_CONC_WALL) for z, r in zip(SNO_CONC_Z,
+                                                     SNO_CONC_RMIN))
+    out += [
+        '  </materials>\n  <solids>\n',
+        '    <box name="world_s" lunit="mm" x="22000" y="22000" '
+        'z="22000"/>\n',
+        '    <orb name="av_s" lunit="mm" r="%r"/>\n' % SNO_AV_RADIUS,
+        '    <orb name="d2o_s" lunit="mm" r="%r"/>\n'
+        % (SNO_AV_RADIUS - SNO_AV_WALL),
+        '    <polycone name="pmt_body_s" lunit="mm" aunit="deg" '
+        'startphi="0" deltaphi="360">\n',
+        ''.join('      <zplane z="%r" rmin="0" rmax="%r"/>\n' % (z, r)
+                for z, r in zip(SNO_BODY_Z, SNO_BODY_R)),
+        '    </polycone>\n',
+        '    <polycone name="pmt_conc_s" lunit="mm" aunit="deg" '
+        'startphi="0" deltaphi="360">\n', conc_planes, '    </polycone>\n',
+        '    <opticalsurface name="photocathode" model="glisur" '
+        'finish="polished" type="dielectric_metal" value="1.0">\n'
+        '      <property name="EFFICIENCY" ref="EFF_PMT"/>\n'
+        '    </opticalsurface>\n',
+        '    <opticalsurface name="concentrator" model="glisur" '
+        'finish="polished" type="dielectric_metal" value="1.0">\n'
+        '      <property name="REFLECTIVITY" ref="REFL_CONC"/>\n'
+        '    </opticalsurface>\n',
+        '  </solids>\n  <structure>\n',
+        '    <volume name="pmt_body_log">\n      <materialref ref="glass"/>\n'
+        '      <solidref ref="pmt_body_s"/>\n    </volume>\n',
+        '    <volume name="pmt_conc_log">\n'
+        '      <materialref ref="aluminium"/>\n'
+        '      <solidref ref="pmt_conc_s"/>\n    </volume>\n',
+        '    <volume name="d2o_log">\n'
+        '      <materialref ref="heavy_water"/>\n'
+        '      <solidref ref="d2o_s"/>\n    </volume>\n',
+        '    <volume name="av_log">\n      <materialref ref="acrylic"/>\n'
+        '      <solidref ref="av_s"/>\n'
+        '      <physvol name="d2o_phys">\n'
+        '        <volumeref ref="d2o_log"/>\n      </physvol>\n'
+        '    </volume>\n',
+        '    <volume name="world_log">\n      <materialref ref="water"/>\n'
+        '      <solidref ref="world_s"/>\n',
+        '      <physvol name="av_phys">\n        <volumeref ref="av_log"/>\n'
+        '      </physvol>\n']
+    for i in range(npmt):
+        for part in ('body', 'conc'):
+            out.append('      <physvol name="pmt_%s_phys%d">\n'
+                       '        <volumeref ref="pmt_%s_log"/>\n'
+                       '        <positionref ref="pmtpos%d"/>\n'
+                       '        <rotationref ref="pmtrot%d"/>\n'
+                       '      </physvol>\n' % (part, i, part, i, i))
+    out += [
+        '    </volume>\n',
+        '    <skinsurface name="photocathode_skin" '
+        'surfaceproperty="photocathode">\n'
+        '      <volumeref ref="pmt_body_log"/>\n    </skinsurface>\n',
+        '    <skinsurface name="concentrator_skin" '
+        'surfaceproperty="concentrator">\n'
+        '      <volumeref ref="pmt_conc_log"/>\n    </skinsurface>\n',
+        '  </structure>\n  <setup name="Default" version="1.0">\n'
+        '    <world ref="world_log"/>\n  </setup>\n</gdml>\n']
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'w') as f:
+        f.write(''.join(out))
+    ratdb = path + '.ratdb.json'
+    with open(ratdb, 'w') as f:
+        json.dump([
+            {'name': 'GEO', 'index': 'pmt', 'valid_begin': 0, 'valid_end': 0,
+             'type': 'pmtarray', 'pos_table': 'PMTINFO'},
+            {'name': 'PMTINFO', 'index': '', 'valid_begin': 0,
+             'valid_end': 0, 'x': pos[:, 0].tolist(),
+             'y': pos[:, 1].tolist(), 'z': pos[:, 2].tolist(),
+             'type': [1] * npmt}], f)
+    return path, ratdb
+
+
+def sno_small():
+    """``@chip_smoke.sno_small``: the SNO-like detector at
+    ``SNO_SMALL_NPMT`` PMTs, through the port's RAT loader."""
+    gdml, ratdb = sno_like_gdml(SNO_SMALL_NPMT, os.path.join(
+        ROOT, '.cache', 'sno', 'sno_%d.gdml' % SNO_SMALL_NPMT))
+    loader = RATGeoLoader(gdml, ratdb_file=ratdb)
+    loader.add_pmt_info()
+    return sno_detector(loader)
+
+
+def sno_detector(loader):
+    """``loader``'s Detector, its own material (where a vertex makes its
+    photons) the heavy water inside the vessel."""
+    d2o = loader.materials_used[loader.material_lookup['heavy_water']]
+    return loader.build_detector(detector=Detector(d2o),
+                                 volume_classifier=sno_classifier)
+
+
+def sno_classifier(volume_ref, material_ref, parent_material_ref):
+    """RATGeoLoader volume classifier of ``sno_like_gdml``'s detector:
+    PMT bodies are channels, the world is omitted, the rest are solids
+    (their skin surfaces come from the GDML)."""
+    if volume_ref == 'world_log':
+        return 'omit', {}
+    if volume_ref.startswith('pmt_body_log'):
+        return 'pmt', dict(color=0xA0A05000, channel_type=1)
+    return 'solid', dict(color=0x33A0A0A0)
 
 
 def chi2_ndf(a, b):
@@ -883,6 +1108,184 @@ def render_phase(gg, tiny, dev, card):
     return launches
 
 
+def peak_rss_gb():
+    """The host's peak resident set of this process, GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def sno_phase(dev, card):
+    """Phase 15: the SNO-like detector from GDML through the port only,
+    its flat table walked by K1 and the flat K3, propagated by both
+    drivers, and the geo -> bvh -> sim commands on a small copy.
+    Returns the numbers of the flat kernels' entries."""
+    t0 = time.time()
+    gdml, ratdb = sno_like_gdml(SNO_NPMT, os.path.join(
+        ROOT, '.cache', 'sno', 'sno_%d.gdml' % SNO_NPMT))
+    host_s = {'write': time.time() - t0}
+    t0 = time.time()
+    loader = RATGeoLoader(gdml, ratdb_file=ratdb)
+    host_s['parse'] = time.time() - t0
+    t0 = time.time()
+    loader.add_pmt_info()
+    host_s['add_pmt_info'] = time.time() - t0
+    t0 = time.time()
+    det = sno_detector(loader)
+    host_s['build_detector'] = time.time() - t0
+    t0 = time.time()
+    det.flatten()
+    host_s['flatten'] = time.time() - t0
+    ntri = len(det.mesh.triangles)
+    print('SNO-like GDML, %d PMTs: host seconds %s; %d triangles, %d '
+          'vertices, %d solids, %d channels; peak RSS %.2f GB'
+          % (SNO_NPMT, json.dumps({k: round(v, 3) for k, v in
+                                   host_s.items()}), ntri,
+             len(det.mesh.vertices), len(det.solids), det.num_channels(),
+             peak_rss_gb()), flush=True)
+    check(det.num_channels() == SNO_NPMT, 'the SNO-like detector has %d '
+          'channels, not %d' % (det.num_channels(), SNO_NPMT))
+    # a PMT's body 1,152 and concentrator 1,024 triangles, two orbs of
+    # 4,416: 20,545,920 at 9,438 PMTs
+    check(ntri == 2176 * SNO_NPMT + 2 * 4416, '%d triangles' % ntri)
+
+    name = 'sno_like_%d' % SNO_NPMT
+    t0 = time.time()
+    gg = gpu.GPUDetector.from_table_cache(name, detector=det, device=dev)
+    how = 'table cache'
+    if gg is None:
+        gg = gpu.GPUDetector(det, dev)
+        torch.cuda.synchronize()
+        host_s['pack'] = time.time() - t0
+        t0 = time.time()
+        gg.save_table_cache(name)
+        host_s['save_table_cache'] = time.time() - t0
+        how = 'packed'
+    else:
+        host_s['load_table_cache'] = time.time() - t0
+    g = gg.geom
+    rows = g.mbvh_rows.shape[0]
+    print('SNO-like tables (%s): %d MBVH rows of %d words = %.1f MB, depth '
+          '%d, instanced %s, %d channels; host seconds %s; peak RSS %.2f GB'
+          % (how, rows, g.mbvh_rows.shape[1],
+             g.mbvh_rows.numel() * 4 / 1e6, g.mbvh_depth, g.mbvh_instanced,
+             gg.nchannels, json.dumps({k: round(v, 3) for k, v in
+                                       host_s.items()}), peak_rss_gb()),
+          flush=True)
+    check(not g.mbvh_instanced, 'the SNO-like detector packed instanced')
+    check(gg.nchannels == SNO_NPMT, 'the tables hold %d channels'
+          % gg.nchannels)
+
+    # K1 through intersect_mesh: the kernel against its plain version on
+    # every ray, then timed, launches counted
+    pos, dirs = benchmark._center_rays(NRAYS)
+    hits, err1, args = compare_walk(g, pos, dirs, dev)
+    check(hits > 0.5 * NRAYS, 'SNO-like: only %d of %d center rays hit'
+          % (hits, NRAYS))
+    o = torch.from_numpy(pos).to(dev)
+    d = torch.from_numpy(dirs).to(dev)
+    reset()
+    ms1 = cuda_ms(lambda: tmbvh.intersect_mesh(o, d, g), 5)
+    k1_launches = mbvh_walk.closest_hit_launches.launches
+    check(k1_launches == 6, 'intersect_mesh made %d K1 launches in 6 calls'
+          % k1_launches)
+    plain_ms1 = cuda_ms(lambda: mbvh_walk.closest_hit_plain(*args), 1)
+    b1 = closest_hit_bound(args)
+    print('walk SNO-like flat (K1, depth %d, %d rows): %d center rays, %d '
+          'hits, bit-equal; intersect_mesh %.3f ms (%.0f rays/s), plain '
+          '%.3f ms (%s)' % (g.mbvh_depth, rows, NRAYS, hits, ms1,
+                            NRAYS / ms1 * 1e3, plain_ms1, card), flush=True)
+    report_bound('closest hit K1, SNO-like flat, %d center rays' % NRAYS,
+                 b1, ms1)
+
+    # flat K3: one service window at driver width against its plain
+    # version (and a long window), then timed
+    err3 = compare_window(g, fused.DEFAULT_WIDTH, 1, 3, 'SNO-like flat')
+    ms3, plain_ms3, b3 = time_window(g, fused.DEFAULT_WIDTH, 1)
+    print('window SNO-like flat (K3), %d lanes, %d iterations: kernel '
+          '%.3f ms, plain %.3f ms (%s)' % (fused.DEFAULT_WIDTH,
+                                           fused.SERVICE_EVERY, ms3,
+                                           plain_ms3, card), flush=True)
+    report_bound('window K3, SNO-like flat, %d lanes x %d iterations'
+                 % (fused.DEFAULT_WIDTH, fused.SERVICE_EVERY), b3, ms3)
+
+    # both drivers, each with the counts set to 0 just before
+    k3_launches = 0
+    line = {'phase': 15, 'detector': 'SNO-like GDML', 'pmts': SNO_NPMT,
+            'triangles': ntri, 'mbvh_rows': rows,
+            'mbvh_mb': g.mbvh_rows.numel() * 4 / 1e6,
+            'host_seconds': host_s, 'peak_rss_gb': peak_rss_gb(),
+            'card': card}
+    for label, kw in (('on-deck', dict(od_slots=1)),
+                      ('step loop', dict(driver='steps'))):
+        reset()
+        rates, gp = benchmark.propagate(gg, number=3, nphotons=NPHOTONS,
+                                        max_steps=100, **kw)
+        flags = gp.state['flags']
+        terminal = float(((flags & TERMINAL) != 0).float().mean())
+        detected = (flags & i32(host.event.SURFACE_DETECT)) != 0
+        det_frac = float(detected.float().mean())
+        tri = gp.state['last_hit_triangle'][detected].long()
+        chan = gg.det.solid_id_to_channel_index[
+            g.solid_id_map[tri].long()].long()
+        check(terminal >= 0.99, 'SNO-like %s: only %.4f terminal'
+              % (label, terminal))
+        check(det_frac > 0, 'SNO-like %s: nothing detected' % label)
+        check(bool(((chan >= 0) & (chan < SNO_NPMT)).all()),
+              'SNO-like %s: a detected photon outside the channels' % label)
+        if 'od_slots' in kw:
+            launches = mbvh_walk.walk_window_launches[1].launches
+            k3_launches += launches
+            check(launches > 0, 'the on-deck driver never launched K3')
+        else:
+            launches = mbvh_walk.closest_hit_launches.launches
+            k1_launches += launches
+            check(launches > 0, 'the step loop never launched K1')
+        key = 'ondeck' if 'od_slots' in kw else 'steps'
+        line.update({key + '_photons_per_s': [float(r) for r in rates],
+                     key + '_terminal': terminal,
+                     key + '_det_frac': det_frac,
+                     key + '_channels_hit': int(chan.unique().numel()),
+                     key + '_launches': launches})
+        print('photons propagated/s, SNO-like, %d isotropic 400 nm photons '
+              'from the center, max_steps=100, %s: %s; mean %.0f (%s); '
+              'terminal %.5f, detected %.5f on %d channels; %d kernel '
+              'launches in 4 propagations'
+              % (NPHOTONS, label, ['%.0f' % r for r in rates], rates.mean(),
+                 card, terminal, det_frac, chan.unique().numel(), launches),
+              flush=True)
+    print(json.dumps(line), flush=True)
+    del gg, g, args
+    torch.cuda.empty_cache()
+
+    # the commands a user runs: geo save -> bvh create/stat/optimize ->
+    # sim, on a small SNO-like detector (its pickle stays small)
+    t0 = time.time()
+    cli_geo.main(['save', '@chip_smoke.sno_small', 'sno_small'])
+    cli_bvh.main(['create', 'sno_small'])
+    cli_bvh.main(['stat', 'sno_small'])
+    cli_bvh.main(['optimize', 'sno_small'])
+    out = os.path.join(ROOT, '.cache', 'sno', 'sno_small_events.npz')
+    cli_sim.main(['sno_small', '-o', out, '-n', str(SNO_GUN_EVENTS), '-s',
+                  '15'])
+    events = list(NpzReader(out))
+    hit = [int(np.asarray(ev.channels.hit).sum()) for ev in events]
+    print('commands, SNO-like %d PMTs: geo save, bvh create/stat/optimize, '
+          'sim of %d e- events to npz in %.1f s; hit channels an event %s'
+          % (SNO_SMALL_NPMT, SNO_GUN_EVENTS, time.time() - t0, hit),
+          flush=True)
+    check(len(events) == SNO_GUN_EVENTS and all(n > 0 for n in hit),
+          'chroma-torch-sim on the saved SNO-like detector: %s' % hit)
+    if importlib.util.find_spec('uproot') is None \
+            and importlib.util.find_spec('ROOT') is None:
+        print('.root output: not run, this machine has neither ROOT nor '
+              'uproot', flush=True)
+    else:
+        root_out = out[:-len('.npz')] + '.root'
+        cli_sim.main(['sno_small', '-o', root_out, '-n', '1', '-s', '15'])
+        print('.root output: %s written' % root_out, flush=True)
+    return {'k1': (ms1, plain_ms1, b1, k1_launches, err1),
+            'k3': (ms3, plain_ms3, b3, k3_launches, err3)}
+
+
 def main():
     t_start = time.time()
     # ---- 1. device ----------------------------------------------------
@@ -1303,6 +1706,9 @@ def main():
     w_launches[1] += server_phase(gg, card, float(np.load(os.path.join(
         GOLDEN_DIR, 'demo_full_pdf.npz'))['det_frac']))
     ch_launches += render_phase(gg, tiny, dev, card)
+
+    # ---- 15. a SNO-like detector from GDML ----------------------------
+    sno = sno_phase(dev, card)
     print('chip_smoke: %.1f s in all' % (time.time() - t_start))
 
     print('nvidia-smi name, power.limit: %s' % card)
@@ -1325,6 +1731,19 @@ def main():
             'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
             'launches': w_launches[od_slots],
             'max_abs_err': werr[od_slots]}, **timing(*wms[od_slots])))
+    for key, name, variant in (
+            ('k1', 'mbvh_closest_hit_flat', 'K1, closest_hit_kernel<false>'),
+            ('k3', 'mbvh_walk_window_od1_flat',
+             'K3 flat, walk_window_kernel<false, 1>')):
+        ms_, plain, b, launches, e = sno[key]
+        source = 'mbvh_walk.cu' if key == 'k1' else 'mbvh_walk_window.cu'
+        entries.append(dict({
+            'name': name, 'variant': variant,
+            'phase': '15, SNO-like flat table',
+            'route': 'cuda', 'source': 'chroma_tpu_torch/csrc/' + source,
+            'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
+            'launches': launches, 'max_abs_err': e},
+            **timing(ms_, plain, b)))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -1,12 +1,12 @@
 """BVH construction, fully vectorized on the host CPU.
 
-A copy of chroma_tpu/bvh/build.py, cut to what the port calls: the
-recursive-grid BVH that the geometry loader attaches (its world grid is
-the packed tables' ``legacy_world_*``) and the Morton helpers of the
-MBVH builder.  The reference builds its BVH with CUDA kernels
-(chroma/gpu/bvh.py, chroma/cuda/bvh.cu, chroma/bvh/grid.py); every one
-of them is a data-parallel array op, so the tree is built with
-vectorized numpy on the host.
+A copy of chroma_tpu/bvh/build.py for the port.  The reference builds
+its BVH with CUDA kernels (chroma/gpu/bvh.py, chroma/cuda/bvh.cu,
+chroma/bvh/grid.py); every one of them is a data-parallel array op, so
+the tree is built with vectorized numpy on the host
+(``np.minimum.reduceat`` replaces the per-parent child scans), and the
+native helpers of chroma_tpu_torch/csrc/host_native.cc accelerate the
+Morton sort for very large meshes.
 
 Node quantization matches the reference exactly (truncate, then widen
 the box by one unit on each side: chroma/cuda/bvh.cu make_leaves).
@@ -101,6 +101,31 @@ def merge_nodes_detailed(nodes, first_child, nchild):
     seg_hi = np.maximum.reduceat(hi, first_child, axis=0)
 
     parents = np.empty((len(first_child), 4), dtype=np.uint32)
+    parents[:, :3] = seg_lo | (seg_hi << 16)
+    parents[:, 3] = (first_child.astype(np.uint32)
+                     | (nchild << np.uint32(CHILD_BITS)))
+    return to_uint4(parents)
+
+
+def merge_nodes(nodes, degree, max_ratio=None):
+    """Group Morton-ordered nodes into parents of fixed ``degree``
+    (simple builder; padding nodes with x==0 are not counted as
+    children).  (reference: chroma/gpu/bvh.py merge_nodes)"""
+    arr = from_uint4(nodes)
+    n = len(arr)
+    nparent = (n + degree - 1) // degree
+    first_child = np.arange(nparent, dtype=np.int64) * degree
+
+    # padding nodes (all-zero, x==0) must not contribute to the union
+    real = (arr[:, 0] != 0)
+    lo = np.where(real[:, None], arr[:, :3] & 0xFFFF, 0xFFFF) \
+        .astype(np.uint32)
+    hi = np.where(real[:, None], arr[:, :3] >> 16, 0).astype(np.uint32)
+    seg_lo = np.minimum.reduceat(lo, first_child, axis=0)
+    seg_hi = np.maximum.reduceat(hi, first_child, axis=0)
+    nchild = np.add.reduceat(real.astype(np.uint32), first_child)
+
+    parents = np.empty((nparent, 4), dtype=np.uint32)
     parents[:, :3] = seg_lo | (seg_hi << 16)
     parents[:, 3] = (first_child.astype(np.uint32)
                      | (nchild << np.uint32(CHILD_BITS)))
@@ -212,4 +237,23 @@ def make_recursive_grid_bvh(mesh, target_degree=3, verbose=False):
 
     nodes, layer_bounds = concatenate_layers(layers)
     nodes = collapse_chains(nodes, layer_bounds)
+    return BVH(world_coords, nodes, layer_bounds[:-1])
+
+
+def make_simple_bvh(mesh, degree=3):
+    """Fixed-degree grouping of Morton-ordered leaves (reference:
+    chroma/bvh/simple.py)."""
+    world_coords, leaf_nodes, morton_codes = \
+        create_leaf_nodes(mesh, round_to_multiple=degree)
+
+    order = np.argsort(morton_codes, kind='stable')
+    leaf_nodes[:len(order)] = leaf_nodes[order]
+    assert len(leaf_nodes) % degree == 0
+
+    layers = [leaf_nodes]
+    while len(layers[0]) > 1:
+        parent = merge_nodes(layers[0], degree=degree)
+        layers = [parent] + layers
+
+    nodes, layer_bounds = concatenate_layers(layers)
     return BVH(world_coords, nodes, layer_bounds[:-1])

@@ -1,9 +1,9 @@
-"""Bounding volume hierarchy data structures.
+"""Bounding volume hierarchy data structures (a copy of
+chroma_tpu/bvh/bvh.py for the port).
 
-A copy of chroma_tpu/bvh/bvh.py, cut to what the port uses.  Same
-packed-node ABI as the reference (reference: chroma/bvh/bvh.py): nodes
-are uint32 x 4 records; x/y/z hold the 16-bit fixed-point AABB (lower
-bound in the low halfword, upper in the high halfword); w holds
+Same packed-node ABI as the reference (reference: chroma/bvh/bvh.py):
+nodes are uint32 x 4 records; x/y/z hold the 16-bit fixed-point AABB
+(lower bound in the low halfword, upper in the high halfword); w holds
 child-id | nchild << CHILD_BITS, with nchild == 0 marking a leaf whose
 child id is a triangle index.  Nodes are stored root-first, layer by
 layer, and the children of a node are contiguous.
@@ -50,15 +50,39 @@ def unpack_nodes(nodes):
     return unpacked
 
 
+class OutOfRangeError(Exception):
+    """World coordinates exceed the 16-bit fixed point range."""
+
+
 class WorldCoords(object):
     """Transformation between world floats and 16-bit fixed point."""
+
+    MAX_INT = 2 ** 16 - 1
 
     def __init__(self, world_origin, world_scale):
         self.world_origin = np.array(world_origin, dtype=np.float32)
         self.world_scale = np.float32(world_scale)
 
+    def world_to_fixed(self, world):
+        """Round world coordinates to nearest fixed point value."""
+        fixed = ((np.asarray(world, dtype=np.float64) - self.world_origin)
+                 / self.world_scale).round()
+        if int(fixed.max()) > WorldCoords.MAX_INT or fixed.min() < 0:
+            raise OutOfRangeError('range = (%f, %f)'
+                                  % (fixed.min(), fixed.max()))
+        return fixed.astype(np.uint16)
+
     def fixed_to_world(self, fixed):
         return np.asarray(fixed) * self.world_scale + self.world_origin
+
+
+def node_areas(nodes):
+    """Surface areas of packed nodes in fixed-point units."""
+    unpacked = unpack_nodes(nodes)
+    dx = unpacked['xhi'].astype(float) - unpacked['xlo']
+    dy = unpacked['yhi'].astype(float) - unpacked['ylo']
+    dz = unpacked['zhi'].astype(float) - unpacked['zlo']
+    return 2.0 * (dx * dy + dy * dz + dz * dx)
 
 
 class BVH(object):
@@ -96,3 +120,24 @@ class BVHLayerSlice(object):
 
     def __len__(self):
         return len(self.nodes)
+
+    def areas_fixed(self):
+        return node_areas(self.nodes)
+
+    def area_fixed(self):
+        return node_areas(self.nodes).sum()
+
+    def area(self):
+        """Total node surface area in world units."""
+        return self.area_fixed().sum() * self.world_coords.world_scale ** 2
+
+    def get_bounds(self):
+        """(lower, upper) world-space bounds of each node in the layer."""
+        info = unpack_nodes(self.nodes)
+        fixed_lower = np.dstack([info[s] for s in
+                                 ['xlo', 'ylo', 'zlo']]).squeeze()
+        fixed_upper = np.dstack([info[s] for s in
+                                 ['xhi', 'yhi', 'zhi']]).squeeze()
+        lower = self.world_coords.fixed_to_world(fixed_lower)
+        upper = self.world_coords.fixed_to_world(fixed_upper)
+        return np.atleast_2d(lower), np.atleast_2d(upper)

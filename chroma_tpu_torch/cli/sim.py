@@ -25,11 +25,6 @@ def main(argv=None):
                              'PyTorch versions')
     args = parser.parse_args(argv)
 
-    if args.output_filename.endswith('.root'):
-        parser.error('.root output needs the ntuple writer (io/ntuple.py '
-                     'of chroma_tpu), which chroma_tpu_torch does not '
-                     'carry yet: write .npz')
-
     import numpy as np
     from chroma_tpu_torch import loader
     from chroma_tpu_torch.sim import Simulation
@@ -50,9 +45,13 @@ def main(argv=None):
     with Simulation(detector, seed=args.seed,
                     geant4_processes=args.ngenerators,
                     device=args.device) as sim:
-        writer = NpzWriter(args.output_filename)
-        if hasattr(detector, 'channel_index_to_position'):
-            writer.set_detector(detector)
+        if args.output_filename.endswith('.root'):
+            from chroma_tpu_torch.io.ntuple import NTupleWriter
+            writer = NTupleWriter(args.output_filename, detector=detector)
+        else:
+            writer = NpzWriter(args.output_filename)
+            if hasattr(detector, 'channel_index_to_position'):
+                writer.set_detector(detector)
 
         start = time.time()
         nwritten = 0

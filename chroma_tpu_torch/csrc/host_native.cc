@@ -1,8 +1,6 @@
-// Host-side BVH build helpers of chroma_tpu_torch: the functions of the
-// JAX package's csrc/chroma_native.cc that the MBVH builder
-// (chroma_tpu_torch/bvh/mbvh.py) calls, copied unchanged so that both
-// packages build the same tables bit for bit.  The CSG boolean helpers
-// of that file are not used by the port and are not copied.
+// Host-side native helpers of chroma_tpu_torch: the functions of the
+// JAX package's csrc/chroma_native.cc, copied unchanged so that both
+// packages build the same tables and the same CSG solids bit for bit.
 //
 // Exposed via a plain C ABI and loaded with ctypes
 // (chroma_tpu_torch/native.py, which builds it with g++ into
@@ -16,6 +14,8 @@
 //   coarsen_group       : one recursive-grid grouping round (grid.py)
 //   segment_min_max_u32 : child-AABB unions per parent run
 //   sah_wide_build      : binned-SAH wide tree (sah_wide_fetch reads it)
+//   csg_boolean         : BSP-tree boolean of two triangle soups
+//                         (csg_fetch reads it)
 
 #include <cstdint>
 #include <cstring>
@@ -407,6 +407,269 @@ void sah_wide_fetch(uint8_t* kind, int64_t* child_start,
     std::memcpy(node_hi, g_built.node_hi.data(),
                 g_built.node_hi.size() * sizeof(float));
     g_built = Built();
+}
+
+// ---------------------------------------------------------------------
+// BSP-tree CSG on triangle soups (native backend of chroma_tpu_torch/csg.py;
+// the reference meshes boolean solids through gmsh/OCC,
+// chroma/rat/gen_mesh.py:56).  Thibault-Naylor polygon clipping.
+
+namespace csg {
+
+struct V3 { double x, y, z; };
+static inline V3 sub3(V3 a, V3 b) { return {a.x-b.x, a.y-b.y, a.z-b.z}; }
+static inline V3 add3(V3 a, V3 b) { return {a.x+b.x, a.y+b.y, a.z+b.z}; }
+static inline V3 mul3(V3 a, double s) { return {a.x*s, a.y*s, a.z*s}; }
+static inline double dot3(V3 a, V3 b) { return a.x*b.x + a.y*b.y + a.z*b.z; }
+static inline V3 cross3(V3 a, V3 b) {
+    return {a.y*b.z - a.z*b.y, a.z*b.x - a.x*b.z, a.x*b.y - a.y*b.x};
+}
+
+struct Poly {
+    std::vector<V3> v;
+    V3 n;
+    double w;
+    void flip() {
+        std::reverse(v.begin(), v.end());
+        n = mul3(n, -1.0); w = -w;
+    }
+};
+
+static const double kEps = 1e-6;
+
+static void split_poly(const V3& n, double w, const Poly& p,
+                       std::vector<Poly>& cofront, std::vector<Poly>& coback,
+                       std::vector<Poly>& front, std::vector<Poly>& back) {
+    enum { COP = 0, FRONT = 1, BACK = 2, SPAN = 3 };
+    int ptype = 0;
+    std::vector<int> types(p.v.size());
+    for (size_t i = 0; i < p.v.size(); ++i) {
+        double t = dot3(n, p.v[i]) - w;
+        int typ = (t < -kEps) ? BACK : (t > kEps ? FRONT : COP);
+        ptype |= typ;
+        types[i] = typ;
+    }
+    switch (ptype) {
+    case COP:
+        (dot3(n, p.n) > 0 ? cofront : coback).push_back(p);
+        break;
+    case FRONT: front.push_back(p); break;
+    case BACK:  back.push_back(p);  break;
+    default: {
+        Poly f, b;
+        f.n = p.n; f.w = p.w; b.n = p.n; b.w = p.w;
+        size_t cnt = p.v.size();
+        for (size_t i = 0; i < cnt; ++i) {
+            size_t j = (i + 1) % cnt;
+            int ti = types[i], tj = types[j];
+            V3 vi = p.v[i], vj = p.v[j];
+            if (ti != BACK)  f.v.push_back(vi);
+            if (ti != FRONT) b.v.push_back(vi);
+            if ((ti | tj) == SPAN) {
+                double t = (w - dot3(n, vi)) / dot3(n, sub3(vj, vi));
+                V3 vv = add3(vi, mul3(sub3(vj, vi), t));
+                f.v.push_back(vv);
+                b.v.push_back(vv);
+            }
+        }
+        if (f.v.size() >= 3) front.push_back(std::move(f));
+        if (b.v.size() >= 3) back.push_back(std::move(b));
+    }
+    }
+}
+
+struct Node {
+    bool has_plane = false;
+    V3 n{0, 0, 0};
+    double w = 0;
+    int front = -1, back = -1;
+    std::vector<Poly> polys;
+};
+
+struct Tree {
+    std::vector<Node> nodes;
+    int make() { nodes.emplace_back(); return (int)nodes.size() - 1; }
+
+    void build(int root, std::vector<Poly> polys) {
+        std::vector<std::pair<int, std::vector<Poly>>> stack;
+        stack.emplace_back(root, std::move(polys));
+        while (!stack.empty()) {
+            auto item = std::move(stack.back());
+            stack.pop_back();
+            int ni = item.first;
+            auto& ps = item.second;
+            if (ps.empty()) continue;
+            if (!nodes[ni].has_plane) {
+                nodes[ni].has_plane = true;
+                nodes[ni].n = ps[0].n;
+                nodes[ni].w = ps[0].w;
+            }
+            std::vector<Poly> front, back;
+            for (auto& p : ps)
+                split_poly(nodes[ni].n, nodes[ni].w, p,
+                           nodes[ni].polys, nodes[ni].polys, front, back);
+            if (!front.empty()) {
+                if (nodes[ni].front < 0) {
+                    int c = make();
+                    nodes[ni].front = c;
+                }
+                stack.emplace_back(nodes[ni].front, std::move(front));
+            }
+            if (!back.empty()) {
+                if (nodes[ni].back < 0) {
+                    int c = make();
+                    nodes[ni].back = c;
+                }
+                stack.emplace_back(nodes[ni].back, std::move(back));
+            }
+        }
+    }
+
+    void invert(int root) {
+        std::vector<int> stack{root};
+        while (!stack.empty()) {
+            int ni = stack.back(); stack.pop_back();
+            Node& nd = nodes[ni];
+            for (auto& p : nd.polys) p.flip();
+            if (nd.has_plane) { nd.n = mul3(nd.n, -1.0); nd.w = -nd.w; }
+            std::swap(nd.front, nd.back);
+            if (nd.front >= 0) stack.push_back(nd.front);
+            if (nd.back >= 0) stack.push_back(nd.back);
+        }
+    }
+
+    std::vector<Poly> clip_polys(int root, std::vector<Poly> polys) const {
+        std::vector<Poly> out;
+        std::vector<std::pair<int, std::vector<Poly>>> stack;
+        stack.emplace_back(root, std::move(polys));
+        while (!stack.empty()) {
+            auto item = std::move(stack.back());
+            stack.pop_back();
+            const Node& nd = nodes[item.first];
+            if (!nd.has_plane) {
+                for (auto& p : item.second) out.push_back(std::move(p));
+                continue;
+            }
+            std::vector<Poly> front, back;
+            for (auto& p : item.second)
+                split_poly(nd.n, nd.w, p, front, back, front, back);
+            if (nd.front >= 0)
+                stack.emplace_back(nd.front, std::move(front));
+            else
+                for (auto& p : front) out.push_back(std::move(p));
+            if (nd.back >= 0)
+                stack.emplace_back(nd.back, std::move(back));
+            // polygons behind a leaf plane are inside the solid: dropped
+        }
+        return out;
+    }
+
+    void clip_to(int root, const Tree& other, int other_root) {
+        std::vector<int> stack{root};
+        while (!stack.empty()) {
+            int ni = stack.back(); stack.pop_back();
+            nodes[ni].polys =
+                other.clip_polys(other_root, std::move(nodes[ni].polys));
+            if (nodes[ni].front >= 0) stack.push_back(nodes[ni].front);
+            if (nodes[ni].back >= 0) stack.push_back(nodes[ni].back);
+        }
+    }
+
+    void all_polys(int root, std::vector<Poly>& out) const {
+        std::vector<int> stack{root};
+        while (!stack.empty()) {
+            int ni = stack.back(); stack.pop_back();
+            for (const auto& p : nodes[ni].polys) out.push_back(p);
+            if (nodes[ni].front >= 0) stack.push_back(nodes[ni].front);
+            if (nodes[ni].back >= 0) stack.push_back(nodes[ni].back);
+        }
+    }
+};
+
+static std::vector<Poly> soup_to_polys(const double* tris, int64_t n) {
+    std::vector<Poly> out;
+    out.reserve(n);
+    for (int64_t i = 0; i < n; ++i) {
+        const double* t = tris + 9 * i;
+        Poly p;
+        p.v = {{t[0], t[1], t[2]}, {t[3], t[4], t[5]}, {t[6], t[7], t[8]}};
+        V3 nv = cross3(sub3(p.v[1], p.v[0]), sub3(p.v[2], p.v[0]));
+        double ln = std::sqrt(dot3(nv, nv));
+        if (ln < 1e-30) continue;
+        p.n = mul3(nv, 1.0 / ln);
+        p.w = dot3(p.n, p.v[0]);
+        out.push_back(std::move(p));
+    }
+    return out;
+}
+
+static std::vector<double> g_csg_result;
+
+}  // namespace csg
+
+// op: 0=union, 1=subtraction, 2=intersection.  Returns the output
+// triangle count; fetch with csg_fetch (fan-triangulated).
+int64_t csg_boolean(int op, const double* tris_a, int64_t na,
+                    const double* tris_b, int64_t nb) {
+    using namespace csg;
+    Tree ta, tb;
+    int ra = ta.make(), rb = tb.make();
+    ta.build(ra, soup_to_polys(tris_a, na));
+    tb.build(rb, soup_to_polys(tris_b, nb));
+
+    bool flip_b = false;
+    if (op == 0) {                       // union
+        ta.clip_to(ra, tb, rb);
+        tb.clip_to(rb, ta, ra);
+        tb.invert(rb);
+        tb.clip_to(rb, ta, ra);
+        tb.invert(rb);
+    } else if (op == 1) {                // subtraction
+        ta.invert(ra);
+        ta.clip_to(ra, tb, rb);
+        tb.clip_to(rb, ta, ra);
+        tb.invert(rb);
+        tb.clip_to(rb, ta, ra);
+        tb.invert(rb);
+        ta.invert(ra);
+        flip_b = true;                   // B's piece bounds a cavity
+    } else {                             // intersection
+        ta.invert(ra);
+        tb.clip_to(rb, ta, ra);
+        tb.invert(rb);
+        ta.clip_to(ra, tb, rb);
+        tb.clip_to(rb, ta, ra);
+        ta.invert(ra);
+        tb.invert(rb);
+    }
+    std::vector<Poly> polys;
+    ta.all_polys(ra, polys);
+    size_t nb_start = polys.size();
+    tb.all_polys(rb, polys);
+    if (flip_b)
+        for (size_t i = nb_start; i < polys.size(); ++i) polys[i].flip();
+
+    g_csg_result.clear();
+    int64_t ntri = 0;
+    for (const auto& p : polys) {
+        for (size_t i = 1; i + 1 < p.v.size(); ++i) {
+            const V3 tri[3] = {p.v[0], p.v[i], p.v[i + 1]};
+            for (int k = 0; k < 3; ++k) {
+                g_csg_result.push_back(tri[k].x);
+                g_csg_result.push_back(tri[k].y);
+                g_csg_result.push_back(tri[k].z);
+            }
+            ++ntri;
+        }
+    }
+    return ntri;
+}
+
+void csg_fetch(double* out) {
+    std::memcpy(out, csg::g_csg_result.data(),
+                csg::g_csg_result.size() * sizeof(double));
+    csg::g_csg_result.clear();
+    csg::g_csg_result.shrink_to_fit();
 }
 
 }  // extern "C"

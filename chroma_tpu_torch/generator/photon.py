@@ -145,6 +145,7 @@ class G4ParallelGenerator(object):
         self.vertex_address = base_address + '.vertex'
         self.photon_address = base_address + '.photon'
         self.processes = []
+        self.senders = []       # (thread, stop event) of generate_events
         self.zmq_context = self.vertex_socket = self.photon_socket = None
         numpy_state = np.random.get_state()
         try:
@@ -202,21 +203,24 @@ class G4ParallelGenerator(object):
         stop = threading.Event()
 
         def sender():
-            try:
-                for ev in events:
-                    while not sem.acquire(timeout=0.1):
-                        if stop.is_set():
-                            return
-                    self.vertex_socket.send_pyobj(ev)
-                    sent[0] += 1
-            except zmq.ZMQError:
-                # the pool was closed under a blocked send (a worker
-                # died and the receiving side raised): nothing to add
-                return
+            for ev in events:
+                while not sem.acquire(timeout=0.1):
+                    if stop.is_set():
+                        return
+                # send only when the socket takes the event at once: a
+                # send blocked on a dead worker would still be inside
+                # libzmq when close() closes the socket from another
+                # thread, and libzmq aborts the process on that
+                while not self.vertex_socket.poll(100, zmq.POLLOUT):
+                    if stop.is_set():
+                        return
+                self.vertex_socket.send_pyobj(ev)
+                sent[0] += 1
             sent.append(True)  # done marker
 
         t = threading.Thread(target=sender)
         t.daemon = True
+        self.senders.append((t, stop))
         t.start()
 
         received = 0
@@ -236,11 +240,20 @@ class G4ParallelGenerator(object):
                     self._check_workers()
             t.join()
         finally:
-            # on an error or an abandoned iteration, let the sender go
-            stop.set()
+            # on an error or an abandoned iteration, stop the sender
+            self._stop_sender(t, stop)
+
+    def _stop_sender(self, t, stop):
+        stop.set()
+        t.join()
+        if (t, stop) in self.senders:
+            self.senders.remove((t, stop))
 
     def close(self):
-        """Terminate the workers and release the ipc sockets."""
+        """Stop the senders, terminate the workers and release the ipc
+        sockets."""
+        for t, stop in list(getattr(self, 'senders', [])):
+            self._stop_sender(t, stop)
         processes = getattr(self, 'processes', [])
         for p in processes:
             if p.is_alive():

@@ -203,12 +203,24 @@ class Solid(object):
 
     def material_indices(self, lookup, which='inner'):
         src = self.inner_material if which == 'inner' else self.outer_material
-        return np.fromiter((lookup[m] for m in src), dtype=np.int32,
-                           count=len(src))
+        return _object_indices(src, lookup)
 
     def surface_indices(self, lookup):
-        return np.fromiter((lookup[s] for s in self.surface), dtype=np.int32,
-                           count=len(self.surface))
+        return _object_indices(self.surface, lookup)
+
+
+def _object_indices(src, lookup):
+    """``lookup[x]`` for each x of the object array ``src``, one masked
+    pass per distinct object (a solid holds a few): materials and
+    surfaces compare by identity, as their dictionary keys do."""
+    out = np.empty(len(src), dtype=np.int32)
+    todo = np.ones(len(src), dtype=bool)
+    while todo.any():
+        obj = src[np.argmax(todo)]
+        same = todo & (src == obj)
+        out[same] = lookup[obj]
+        todo &= ~same
+    return out
 
 
 class _WavelengthProperty(object):

@@ -4,5 +4,8 @@ Formats:
   * chroma_tpu_torch.io.npz: self-contained numpy event files, the same
     format as chroma_tpu.io.npz (a file written by either package is
     read by the other).
-The ROOT and ntuple formats of the JAX package are not carried yet.
+  * chroma_tpu_torch.io.root: ROOT event files (requires a ROOT
+    install, like the reference's chroma/io/root.py)
+  * chroma_tpu_torch.io.ntuple: flat uproot/awkward ntuples (requires
+    uproot, like the reference's chroma/io/ntuple.py)
 """

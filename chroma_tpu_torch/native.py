@@ -1,4 +1,4 @@
-"""ctypes loader for the host BVH-build helpers (csrc/host_native.cc).
+"""ctypes loader for the host native helpers (csrc/host_native.cc).
 
 Counterpart of chroma_tpu/native.py.  ``native()`` compiles the source
 on first use with g++ into ``chroma_tpu_torch/_build/`` (the same flags
@@ -91,6 +91,11 @@ def native():
                                        ctypes.c_int64, ctypes.c_int64,
                                        i64p]
         lib.sah_wide_fetch.argtypes = [u8p, i64p, i64p, i64p, f32p, f32p]
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.csg_boolean.restype = ctypes.c_int64
+        lib.csg_boolean.argtypes = [ctypes.c_int, f64p, ctypes.c_int64,
+                                    f64p, ctypes.c_int64]
+        lib.csg_fetch.argtypes = [f64p]
         _lib = lib
         logger.info('native helpers loaded from %s', out)
     except Exception as exc:  # no toolchain / build failure: fall back
@@ -206,3 +211,19 @@ def sah_wide_build(leaf_lo, leaf_hi, branch, leaf_max):
     return dict(kind=kind, child_start=child_start,
                 child_count=child_count, leaf_order=leaf_order,
                 node_lo=node_lo, node_hi=node_hi, depth=int(depth[0]))
+
+
+def csg_boolean(op_code, tris_a, tris_b):
+    """(n,3,3) f64 output triangle soup, or None without the library.
+    op_code: 0=union, 1=subtraction, 2=intersection."""
+    lib = native()
+    if lib is None:
+        return None
+    tris_a = np.ascontiguousarray(tris_a, dtype=np.float64)
+    tris_b = np.ascontiguousarray(tris_b, dtype=np.float64)
+    n = lib.csg_boolean(op_code,
+                        _ptr(tris_a, ctypes.c_double), len(tris_a),
+                        _ptr(tris_b, ctypes.c_double), len(tris_b))
+    out = np.empty((n, 3, 3), dtype=np.float64)
+    lib.csg_fetch(_ptr(out, ctypes.c_double))
+    return out

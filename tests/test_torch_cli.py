@@ -5,6 +5,7 @@ other's, every field equal), the propagation server's two protocols
 real REQ/REP round trip), and ``main(argv)`` of the sim and cam
 commands with ``--device cpu``.
 """
+import sys
 import threading
 import uuid
 
@@ -24,8 +25,8 @@ from chroma_tpu.cli.server import ChromaRATServer as JChromaRATServer
 from chroma_tpu.io import npz as jnpz
 from chip_smoke import rat_reply, rat_request
 from chroma_tpu_torch import event as pevent, host
-from chroma_tpu_torch.cli import cam as cli_cam, server as cli_server, \
-    sim as cli_sim
+from chroma_tpu_torch.cli import bvh as cli_bvh, cam as cli_cam, \
+    geo as cli_geo, server as cli_server, sim as cli_sim
 from chroma_tpu_torch.cli.server import ChromaRATServer, ChromaServer
 from chroma_tpu_torch.generator.photon import HAVE_ZMQ
 from chroma_tpu_torch.io import npz as pnpz
@@ -269,10 +270,45 @@ def test_cli_sim_writes_a_readable_file(tmp_path, capsys):
     assert len(list(jnpz.NpzReader(out))) == 3
 
 
-def test_cli_sim_names_the_missing_root_writer(capsys):
-    with pytest.raises(SystemExit):
-        cli_sim.main([DETECTOR, '-o', 'out.root', '--device', 'cpu'])
-    assert 'io/ntuple.py' in capsys.readouterr().err
+def test_cli_sim_names_the_missing_root_writer(tmp_path, monkeypatch):
+    """``.root`` output goes through the ntuple writer, as in the JAX
+    package; without uproot it raises, naming the npz format, before
+    any event is simulated."""
+    monkeypatch.setitem(sys.modules, 'uproot', None)
+    monkeypatch.setitem(sys.modules, 'awkward', None)
+    monkeypatch.delitem(sys.modules, 'chroma_tpu_torch.io.ntuple',
+                        raising=False)
+    out = str(tmp_path / 'out.root')
+    with pytest.raises(ImportError, match='npz'):
+        cli_sim.main([DETECTOR, '-o', out, '-g', '0', '--device', 'cpu'])
+    monkeypatch.delitem(sys.modules, 'chroma_tpu_torch.io.ntuple')
+
+
+@needs_zmq
+def test_cli_sim_writes_root_through_the_ntuple_writer(tmp_path,
+                                                       monkeypatch, capsys):
+    """Under the fake uproot/awkward of tests/fake_uproot.py: the gun's
+    events and the detector's channels land in the ntuple trees."""
+    import tests.fake_uproot as fu
+    uproot, awkward = fu.make_fakes()
+    monkeypatch.setitem(sys.modules, 'uproot', uproot)
+    monkeypatch.setitem(sys.modules, 'awkward', awkward)
+    monkeypatch.delitem(sys.modules, 'chroma_tpu_torch.io.ntuple',
+                        raising=False)
+    fu.FILES.clear()
+    out = str(tmp_path / 'gun.root')
+    cli_sim.main([DETECTOR, '-o', out, '-n', '3', '-k', '5', '-s', '4',
+                  '--pos', '0,0,300', '--dir', '0,0,1', '--device', 'cpu'])
+    monkeypatch.delitem(sys.modules, 'chroma_tpu_torch.io.ntuple')
+    assert 'Wrote 3 events to %s' % out in capsys.readouterr().out
+    f = fu.FILES[out]
+    assert f.closed
+    np.testing.assert_array_equal(f.trees['metadata']['n_channels'], [1])
+    evs = f.trees['events']
+    assert sorted(evs['evid']) == [0, 1, 2]
+    assert all(len(v) == 1 for v in evs['vertex'].rows)
+    assert all(len(m) > 0 for m in evs['mcpe'].rows)
+    assert all(set(h['pmt']) <= {0} for h in evs['hit'].rows)
 
 
 @pytest.mark.parametrize('extra', [[], ['--bvh-layer', '1'], ['--hybrid']])
@@ -307,3 +343,78 @@ def test_cli_server_parser_has_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_server.main([DETECTOR, '-a', 'ipc:///tmp/chroma_tpu_torch_none_'
                          + uuid.uuid4().hex])
+
+
+# ---- chroma-torch-geo and chroma-torch-bvh on a temporary cache ----------
+
+@pytest.fixture()
+def cache_dir(tmp_path, monkeypatch):
+    monkeypatch.setenv('CHROMA_TPU_CACHE', str(tmp_path / 'cache'))
+    return tmp_path / 'cache'
+
+
+def test_cli_geo_commands(cache_dir, capsys):
+    """save / list / stat / default / remove on a cache of its own."""
+    from chroma_tpu_torch.cache import Cache
+    cli_geo.main(['save', DETECTOR, 'small'])
+    assert 'saved geometry small' in capsys.readouterr().out
+    assert (cache_dir / 'torch_geo' / 'small').exists()
+    cli_geo.main(['save', '@chroma_tpu_torch.models.companioncube'])
+    cli_geo.main(['list'])
+    out = capsys.readouterr().out.split()
+    assert out[-2:] == ['companioncube', 'small']
+    cli_geo.main(['stat', 'small'])
+    stat = capsys.readouterr().out
+    geometry = Cache().load_geometry('small')
+    assert 'triangles: %d' % len(geometry.mesh.triangles) in stat
+    assert 'vertices:  %d' % len(geometry.mesh.vertices) in stat
+    assert 'channels:  1' in stat
+    assert 'mesh hash: %s' % geometry.mesh.md5() in stat
+    cli_geo.main(['default', 'small'])
+    assert 'default geometry set to small' in capsys.readouterr().out
+    assert len(Cache().load_default_geometry().mesh.triangles) \
+        == len(geometry.mesh.triangles)
+    cli_geo.main(['remove', 'companioncube'])
+    cli_geo.main(['list'])
+    # the list shows the default's link beside the geometries, as the
+    # JAX package's does
+    assert capsys.readouterr().out.split() == ['.default', 'small']
+
+
+def test_cli_bvh_commands(cache_dir, capsys):
+    """create / stat / list / optimize / remove, the created BVH
+    bit-equal to the JAX package's builder on the same mesh, and the
+    optimized one its ``area_sort_children``."""
+    from chroma_tpu import bvh as jbvh
+    from chroma_tpu.bvh.optimize import area_sort_children as jsort
+    from chroma_tpu_torch.cache import Cache
+    cli_geo.main(['save', DETECTOR, 'small'])
+    cli_bvh.main(['create', 'small:grid3', '3'])
+    assert 'Creating degree 3 BVH' in capsys.readouterr().out
+    cache = Cache()
+    mesh = cache.load_geometry('small').mesh
+    mesh_hash = cache.get_geometry_hash('small')
+    bvh = cache.load_bvh(mesh_hash, 'grid3')
+    want = jbvh.make_recursive_grid_bvh(mesh, target_degree=3)
+    assert np.array_equal(jbvh.from_uint4(bvh.nodes),
+                          jbvh.from_uint4(want.nodes))
+    assert list(bvh.layer_offsets) == list(want.layer_offsets)
+
+    cli_bvh.main(['stat', 'small:grid3'])
+    stat = capsys.readouterr().out
+    assert 'nodes:  %d' % len(bvh) in stat
+    assert 'layers: %d' % bvh.layer_count() in stat
+    assert stat.count('area = ') == bvh.layer_count()
+    cli_bvh.main(['optimize', 'small:grid3', '-o', 'sorted'])
+    assert 'optimized in' in capsys.readouterr().out
+    got = cache.load_bvh(mesh_hash, 'sorted')
+    assert np.array_equal(jbvh.from_uint4(got.nodes),
+                          jbvh.from_uint4(jsort(want).nodes))
+    cli_bvh.main(['list', 'small'])
+    listed = capsys.readouterr().out
+    assert 'grid3' in listed and 'sorted' in listed
+    cli_bvh.main(['remove', 'small:sorted'])
+    cli_bvh.main(['list', 'small'])
+    assert 'sorted' not in capsys.readouterr().out
+    assert cli_bvh.parse_bvh_id('small') == ('small', 'default')
+    assert cli_bvh.parse_bvh_id('small:') == ('small', 'default')

@@ -12,7 +12,9 @@ random numbers on the device, so detected fractions are compared within
 import copy
 import importlib
 import itertools
+import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -292,29 +294,70 @@ def test_parallel_generator_produces_photons():
         assert not os.path.exists(address[len('ipc://'):])
 
 
+def run_jax_side(code, *args):
+    """Run ``code`` in a fresh interpreter from the repository root and
+    return the JSON object it prints on its last line.  The JAX package's
+    generator pool forks; a fork of this test process, which holds JAX's
+    and PyTorch's threads and a ZMQ context, can deadlock or kill it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, '-c', 'import tests.conftest\n' + code, *args],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+JAX_POOL = """
+import itertools, json, sys
+import numpy as np
+from chroma_tpu.demo.optics import water
+from chroma_tpu.generator import vertex
+from chroma_tpu.generator.photon import G4ParallelGenerator
+from chroma_tpu.io.npz import NpzWriter
+np.random.seed(77)
+gen = G4ParallelGenerator(1, water, base_seed=1234)
+try:
+    gun = vertex.constant_particle_gun('e-', (0, 0, 0), (1, 0, 0), 8.0)
+    evs = sorted(gen.generate_events(itertools.islice(gun, 3)),
+                 key=lambda ev: ev.id)
+finally:
+    procs = list(gen.processes)
+    gen.__del__()
+for p in procs:
+    p.join(timeout=10.0)
+with NpzWriter(sys.argv[1]) as w:
+    for ev in evs:
+        w.write_event(ev)
+print(json.dumps({'nphotons': [ev.nphotons for ev in evs],
+                  'alive': [p.is_alive() for p in procs]}))
+"""
+
+
 @needs_zmq
-def test_parallel_generator_matches_jax_pool():
+def test_parallel_generator_matches_jax_pool(tmp_path):
     """One worker each, the same worker seed and the same global numpy
     state when the pool starts (the JAX package's forked worker inherits
     it, the port's spawned worker is handed it): the same events come
-    back, photon for photon."""
-    from chroma_tpu.generator.photon import \
-        G4ParallelGenerator as JG4ParallelGenerator
-    out = []
-    for pool_cls, mod, mat in ((JG4ParallelGenerator, jvertex, jwater),
-                               (G4ParallelGenerator, pvertex, pwater)):
-        np.random.seed(77)
-        gen = pool_cls(1, mat, base_seed=1234)
-        try:
-            gun = mod.constant_particle_gun('e-', (0, 0, 0), (1, 0, 0), 8.0)
-            evs = list(gen.generate_events(itertools.islice(gun, 3)))
-        finally:
-            procs = list(gen.processes)
-            gen.__del__()
-        assert _alive(procs) == [False]
-        out.append(sorted(evs, key=lambda ev: ev.id))
-    for jev, pev in zip(*out):
-        assert jev.nphotons == pev.nphotons > 0
+    back, photon for photon.  The JAX pool runs in a fresh interpreter
+    and hands its events over in an npz file, which the port reads."""
+    from chroma_tpu_torch.io.npz import NpzReader
+    path = str(tmp_path / 'jax_pool.npz')
+    jax_side = run_jax_side(JAX_POOL, path)
+    assert jax_side['alive'] == [False]
+    np.random.seed(77)
+    gen = G4ParallelGenerator(1, pwater, base_seed=1234)
+    try:
+        gun = pvertex.constant_particle_gun('e-', (0, 0, 0), (1, 0, 0), 8.0)
+        evs = list(gen.generate_events(itertools.islice(gun, 3)))
+    finally:
+        procs = list(gen.processes)
+        gen.__del__()
+    assert _alive(procs) == [False]
+    pevs = sorted(evs, key=lambda ev: ev.id)
+    jevs = list(NpzReader(path))
+    assert [ev.id for ev in jevs] == [ev.id for ev in pevs] == [0, 1, 2]
+    for n, jev, pev in zip(jax_side['nphotons'], jevs, pevs):
+        assert n == pev.nphotons == len(jev.photons_beg) > 0
         assert_photons_equal(jev.photons_beg, pev.photons_beg)
 
 
@@ -357,20 +400,31 @@ def port_sim():
     assert _alive(processes) == [False, False]
 
 
+JAX_SIMULATION = """
+import itertools, json
+from chroma_tpu import demo
+from chroma_tpu.generator import vertex
+from chroma_tpu.sim import Simulation
+sim = Simulation(demo.tiny(), seed=11, geant4_processes=2)
+try:
+    gun = itertools.islice(vertex.constant_particle_gun(
+        'e-', (0, 0, 0), (1, 0, 0), 10.0), %d)
+    evs = list(sim.simulate((ev.vertices[0] for ev in gun), run_daq=True))
+finally:
+    sim.photon_generator.__del__()
+print(json.dumps({'nhit': sum(len(ev.flat_hits) for ev in evs),
+                  'nphotons': sum(ev.nphotons for ev in evs)}))
+""" % NGUN
+
+
 @needs_zmq
 def test_simulate_vertices_matches_jax(port_sim):
     """Vertex input through the pool, propagation and DAQ on demo.tiny:
     events come back with ids in order of arrival, hits and channels;
     the detected fraction agrees with the JAX Simulation's over the same
-    gun within 5 sigma."""
-    from chroma_tpu import demo as jdemo
-    from chroma_tpu.sim import Simulation as JSimulation
-    jsim = JSimulation(jdemo.tiny(), seed=11, geant4_processes=2)
-    try:
-        jev = list(jsim.simulate(
-            (ev.vertices[0] for ev in _gun(jvertex)), run_daq=True))
-    finally:
-        jsim.photon_generator.__del__()
+    gun within 5 sigma.  The JAX Simulation, whose pool forks, runs in a
+    fresh interpreter and reports its hit and photon counts."""
+    jax_side = run_jax_side(JAX_SIMULATION)
     pev = list(port_sim.simulate(
         (ev.vertices[0] for ev in _gun(pvertex)), run_daq=True,
         keep_photons_end=True))
@@ -380,7 +434,7 @@ def test_simulate_vertices_matches_jax(port_sim):
         assert ev.channels.hit.any() and len(ev.flat_hits) > 0
         assert set(ev.hits) <= set(range(port_sim.gpu_geometry.nchannels))
         assert ev.photons_beg is None
-    jn, jtot = _fraction(jev)
+    jn, jtot = jax_side['nhit'], jax_side['nphotons']
     pn, ptot = _fraction(pev)
     assert jn > 50 and pn > 50
     diff = jn / jtot - pn / ptot

@@ -127,9 +127,12 @@ def test_port_never_imports_jax():
     with DAQ (the on-deck driver, one and two slots, and the step loop)
     through Simulation, a likelihood evaluation, a PDF fill, a tracked
     propagation, a gun event through the generator pool into an event
-    file, a served request in both protocols, a rendered frame and a
-    hybrid render must leave jax and every module of the JAX package
-    chroma_tpu out of sys.modules."""
+    file, a served request in both protocols, a rendered frame, a
+    hybrid render, a SNO-like GDML detector through the RAT loader, CSG
+    booleans on both backends, the demo models, the BVH tools, the geo
+    and bvh commands on a temporary cache and the ntuple writer (under
+    tests/fake_uproot.py) must leave jax and every module of the JAX
+    package chroma_tpu out of sys.modules."""
     code = '\n'.join([
         'import importlib, itertools, os, pkgutil, sys, tempfile',
         'import numpy as np',
@@ -167,7 +170,10 @@ def test_port_never_imports_jax():
         "for name in ('pi0', 'camera', 'histogram.histogram',",
         "             'generator.vertex', 'generator.trackgen',",
         "             'generator.g4gen', 'io.npz', 'cli.sim', 'cli.server',",
-        "             'cli.cam', 'ops.render', 'ops.hybrid'):",
+        "             'cli.cam', 'ops.render', 'ops.hybrid', 'csg',",
+        "             'rat', 'rat.gdml', 'rat.loader', 'rat.ratdb_parser',",
+        "             'models', 'bvh.optimize', 'bvh.bvh', 'bvh.build',",
+        "             'cli.geo', 'cli.bvh', 'io.root', 'io.ntuple'):",
         "    assert 'chroma_tpu_torch.' + name in names, name",
         "    assert 'chroma_tpu_torch.' + name in sys.modules, name",
         'import chip_smoke',
@@ -197,6 +203,34 @@ def test_port_never_imports_jax():
         'hyb.ntriangles = 64',
         'hyb.update_xyz_lookup((0.0, 0.0, 0.0))',
         'assert hyb.render(cam.rays.pos, cam.rays.dir).shape == (192, 3)',
+        'from chroma_tpu_torch import csg, make, models',
+        'from chroma_tpu_torch.rat import RATGeoLoader',
+        "tmp = tempfile.mkdtemp()",
+        "gdml, ratdb = chip_smoke.sno_like_gdml(3, os.path.join(tmp, 'd.gdml'))",
+        'rl = RATGeoLoader(gdml, ratdb_file=ratdb)',
+        'rl.add_pmt_info()',
+        'sno = rl.build_detector(volume_classifier=chip_smoke.sno_classifier)',
+        'assert sno.num_channels() == 3',
+        'sno_sim = Simulation(sno, seed=3, device="cpu")',
+        'assert next(sno_sim.simulate([ph])).photons_end is None',
+        'a, b = make.cube(10.0), make.sphere(6.0, nsteps=6)',
+        "assert len(csg.boolean('subtraction', a, b).triangles) > 0",
+        "assert len(csg._boolean_python('union', a, b).triangles) > 0",
+        'assert len(models.lionsolid().mesh.triangles) > 0',
+        'from chroma_tpu_torch.bvh import make_simple_bvh, optimize',
+        'tree = optimize.area_sort_children(make_simple_bvh(a, degree=3))',
+        'assert optimize.layer_area(tree.nodes) > 0',
+        "os.environ['CHROMA_TPU_CACHE'] = os.path.join(tmp, 'cache')",
+        'from chroma_tpu_torch.cli import bvh as cli_bvh, geo as cli_geo',
+        "cli_geo.main(['save', '@chroma_tpu_torch.models.companioncube', 'cc'])",
+        "cli_bvh.main(['create', 'cc:g', '3'])",
+        "cli_bvh.main(['optimize', 'cc:g'])",
+        'import tests.fake_uproot as fake_uproot',
+        'fake_uproot.install()',
+        "importlib.reload(importlib.import_module('chroma_tpu_torch.io.ntuple'))",
+        'from chroma_tpu_torch.io.ntuple import NTupleWriter',
+        "with NTupleWriter(os.path.join(tmp, 'e.root'), detector=sno) as w:",
+        '    w.write_event(ev)',
         "bad = sorted(m for m in sys.modules if m in ('jax', 'chroma_tpu')",
         "             or m.startswith(('jax.', 'jaxlib', 'flax',",
         "                              'chroma_tpu.')))",
