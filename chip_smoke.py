@@ -20,8 +20,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      walk drains; every state field bit-equal; both times and the bound
      at full-demo width;
   5. the whole on-deck driver on demo.tiny, window kernel against plain
-     walker, same generator seed: final photons bit-equal; referee
-     check 1 (terminal passthrough) bit-exact on the full demo;
+     walker, same generator seed: final photons bit-equal;
+     ``referee.run_referee`` on the full demo: terminal passthrough at
+     widths 2048, 4096 and 8192 (od_slots 1 and 2) and the driver with
+     the window kernel against the plain walker at 2048 and 4096, all
+     bit-exact;
   6. the main path: full demo tables from the table cache (built and
      saved on a miss); 500,000 center rays through ``intersect_mesh``;
      1,048,576 photons through ``GPUPhotons.propagate`` on the on-deck
@@ -76,7 +79,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      65,536 lanes bit-equal and timed; 1,048,576 photons through both
      drivers (>= 99% terminal, something detected, every hit channel a
      channel); then ``chroma-torch-geo save``, ``-bvh create/stat/
-     optimize`` and ``-sim`` to an npz file on a 100-PMT copy.
+     optimize`` and ``-sim`` to an npz file on a 100-PMT copy;
+ 16. photon-axis sharding on the full demo over two shards on the one
+     card (``make_photon_mesh(['cuda:0', 'cuda:0'])``: no copies between
+     cards, no overlap): 1,048,576 photons through
+     ``GPUPhotons.propagate(mesh=...)``, >= 99% terminal and bit-equal to
+     both shards run by hand with their ``shard_generator``; photons/s
+     sharded and unsharded, alternated (one warm-up, three timed each;
+     printed, not gated); ``Simulation(devices=...)`` with DAQ on 4
+     events of 100,000 photons, whose channels must equal the min, sum
+     and OR of both shards' ``run_daq`` run by hand, pooled det_frac
+     within 0.004 of tests/golden/demo_full_pdf.npz; one ``eval_pdf`` on
+     the mesh against the same unsharded, hitcount within 6 sigma.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
 
@@ -110,7 +124,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chroma_tpu_torch import _build, benchmark, gpu, host  # noqa: E402
-from chroma_tpu_torch import referee  # noqa: E402
+from chroma_tpu_torch import parallel, referee  # noqa: E402
 from chroma_tpu_torch.cli import bvh as cli_bvh, geo as cli_geo  # noqa: E402
 from chroma_tpu_torch.cli import sim as cli_sim  # noqa: E402
 from chroma_tpu_torch.detector import Detector  # noqa: E402
@@ -123,7 +137,7 @@ from chroma_tpu_torch.generator.vertex import (  # noqa: E402
 from chroma_tpu_torch.io.npz import NpzReader, NpzWriter  # noqa: E402
 from chroma_tpu_torch.ops import render as render_ops  # noqa: E402
 from chroma_tpu_torch.tools import from_film  # noqa: E402
-from chroma_tpu_torch.ops import fused  # noqa: E402
+from chroma_tpu_torch.ops import daq as daq_ops, fused  # noqa: E402
 from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
 from chroma_tpu_torch.likelihood import Likelihood  # noqa: E402
@@ -151,6 +165,11 @@ ALPHA_DEPTH = 10
 LONG_WINDOW = 4096      # iterations: every walk drains well before
 SNO_SMALL_NPMT = 100    # the SNO-like detector the commands save and run
 SNO_GUN_EVENTS = 4      # chroma-torch-sim events on it
+# phase 16: two shards on the one card, which runs them one after the
+# other: every piece of the sharded path but copies between cards
+SHARD_DEVICES = ('cuda:0', 'cuda:0')
+SHARD_EVENTS = 4        # events of NREQUEST photons through Simulation
+SHARD_ROUNDS = 3        # timed propagations a side, alternated
 # ray counts at the edges of a warp (one warp walks one ray) and of a
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
 GROUP_EDGES = (1, 31, 33, 85, 129, 341, 1001)
@@ -1286,6 +1305,156 @@ def sno_phase(dev, card):
             'k3': (ms3, plain_ms3, b3, k3_launches, err3)}
 
 
+def shard_phase(gg, card, golden_det_frac):
+    """Phase 16: photon-axis sharding over SHARD_DEVICES on the full
+    demo.  One sharded propagation of NPHOTONS photons held bit for bit
+    against both shards run by hand with their shard generators, then
+    photons/s sharded and unsharded, alternated; a sharded Simulation
+    with DAQ whose combined channels must equal the numpy reduction of
+    both shards' ``run_daq`` run by hand, its pooled det_frac against the
+    golden; one ``eval_pdf`` on the mesh against the same unsharded.
+    Returns the phase's K3 launches (the by-hand runs not counted)."""
+    dev = gg.geom.mbvh_rows.device
+    mesh = parallel.make_photon_mesh(SHARD_DEVICES)
+    check(mesh.size == 2 and gg.tables_on(mesh.devices[0])[0] is gg.geom,
+          'a mesh on the tables\' own card must not copy them')
+    photons = benchmark._isotropic_photons(NPHOTONS)
+    m = NPHOTONS // mesh.size
+
+    # ---- one sharded propagation against its shards by hand -----------
+    reset()
+    rng_seed = G.GOLDEN_SEED + 16
+    sharded = gpu.GPUPhotons(photons, dev)
+    t0 = time.time()
+    sharded.propagate(gg, gpu.get_rng_states(seed=rng_seed, device=dev),
+                      max_steps=100, mesh=mesh)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = mbvh_walk.walk_window_launches[1].launches
+    check(launches > 0, 'the sharded propagation never launched K3')
+    terminal = float(((sharded.state['flags'] & TERMINAL) != 0)
+                     .float().mean())
+    check(terminal >= 0.99, 'sharded: only %.4f of photons ended terminal'
+          % terminal)
+    seed = gpu.get_rng_states(seed=rng_seed, device=dev).next()
+    state = gpu.GPUPhotons(photons, dev).state
+    for d, shard_dev in enumerate(mesh.devices):
+        sl = slice(d * m, (d + 1) * m)
+        ref, _ = fused.propagate_fused(
+            {k: v[sl] for k, v in state.items()}, gg.geom,
+            fused.uniform_draws(parallel.shard_generator(seed, d,
+                                                         shard_dev)),
+            max_steps=100)
+        compare_state({k: v[sl] for k, v in sharded.state.items()}, ref,
+                      'sharded propagation, shard %d' % d)
+    print('sharded propagation, full demo, %d photons over %s: both %d-'
+          'photon shards bit-equal to their shards by hand; stats %s '
+          '(summed), terminal %.6f, %.2f s'
+          % (NPHOTONS, [str(x) for x in mesh.devices], m,
+             sharded.last_stats.tolist(), terminal, first_s), flush=True)
+
+    # ---- photons/s, sharded and unsharded, alternated ------------------
+    reset()
+    rng = gpu.get_rng_states(seed=rng_seed + 1, device=dev)
+    rates = {'sharded': [], 'unsharded': []}
+    passes = {'sharded': [], 'unsharded': []}
+    order = [('unsharded', 'sharded'), ('sharded', 'unsharded')]
+    for r in range(SHARD_ROUNDS + 1):
+        for side in order[r % 2]:
+            gp = gpu.GPUPhotons(photons, dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            gp.propagate(gg, rng, max_steps=100,
+                         mesh=mesh if side == 'sharded' else None)
+            torch.cuda.synchronize()
+            if r:                               # round 0 is the warm-up
+                rates[side].append(NPHOTONS / (time.time() - t0))
+                passes[side].append(int(gp.last_stats[0]))
+
+    # ---- Simulation with DAQ on the mesh -------------------------------
+    sim = Simulation(gg, seed=rng_seed + 2, devices=SHARD_DEVICES)
+    check(sim.mesh == mesh, 'Simulation built another mesh')
+    np.random.seed(rng_seed + 2)
+    bombs = [host.photon_bomb(NREQUEST, G.WAVELENGTH, (0.0, 0.0, 0.0))
+             .photons_beg for _ in range(SHARD_EVENTS)]
+    t0 = time.time()
+    events = list(sim.simulate(bombs, run_daq=True))
+    torch.cuda.synchronize()
+    sim_s = time.time() - t0
+    check(len(events) == SHARD_EVENTS, 'the sharded Simulation lost events')
+    det_frac = sum(len(ev.flat_hits) for ev in events) \
+        / float(SHARD_EVENTS * NREQUEST)
+    check(abs(det_frac - golden_det_frac) < 0.004,
+          'sharded detection fraction %.5f against the golden %.5f'
+          % (det_frac, golden_det_frac))
+
+    # ---- one eval_pdf on the mesh and unsharded ------------------------
+    np.random.seed(rng_seed + 3)
+    pdf_photons = host.photon_bomb(20000, G.WAVELENGTH, (0, 0, 0)).photons_beg
+    hitcount = {}
+    for side in ('sharded', 'unsharded'):
+        sim.mesh = mesh if side == 'sharded' else None
+        hitcount[side] = float(sim.eval_pdf(
+            events[0].channels, pdf_photons, 0.2, (-0.5, 999.5), 1,
+            (-0.5, 9.5), nreps=2, ndaq=32, min_bin_content=20)[0].sum())
+    a, b = hitcount['sharded'], hitcount['unsharded']
+    check(a > 0 and abs(a - b) < 6.0 * np.sqrt(a + b + 1.0),
+          'eval_pdf hitcount on the mesh %.0f against %.0f unsharded'
+          % (a, b))
+    torch.cuda.synchronize()
+    launches += mbvh_walk.walk_window_launches[1].launches
+
+    # ---- the batch's channels against both shards' DAQ by hand ---------
+    nch = gg.nchannels
+    batch = gpu.GPUPhotons(host.event.Photons.join(bombs), dev,
+                           copy_triangles=False, copy_weights=False)
+    seed = gpu.get_rng_states(seed=rng_seed + 2, device=dev).next()
+    state, _ = parallel.pad_to_multiple(batch.state, mesh.size)
+    ms = state['pos'].shape[0] // mesh.size
+    chans = []
+    for d, shard_dev in enumerate(mesh.devices):
+        gen = parallel.shard_generator(seed, d, shard_dev)
+        out, _ = fused.propagate_fused(
+            {k: v[d * ms:(d + 1) * ms] for k, v in state.items()}, gg.geom,
+            fused.uniform_draws(gen), max_steps=100)
+        chans.append({k: v.cpu().numpy() for k, v in daq_ops.run_daq(
+            out, gg.geom, gg.det, daq_ops.daq_draws(gen, 1, ms), nch,
+            nevents=SHARD_EVENTS).items()})
+    want = dict(t=np.minimum(chans[0]['t'], chans[1]['t']),
+                q=chans[0]['q'] + chans[1]['q'],
+                flags=(chans[0]['flags'] | chans[1]['flags']).view(np.uint32))
+    for i, ev in enumerate(events):
+        for k in ('t', 'q', 'flags'):
+            got = np.asarray(getattr(ev.channels, k))
+            check(np.array_equal(got.view(np.uint32),
+                                 want[k][i * nch:(i + 1) * nch]
+                                 .view(np.uint32)),
+                  'event %d: channel %s differs from the shards\' DAQ by '
+                  'hand' % (i, k))
+    nhit = [int(np.asarray(ev.channels.hit).sum()) for ev in events]
+
+    line = {'phase': 16, 'mesh': [str(x) for x in mesh.devices],
+            'photons': NPHOTONS,
+            'photons_per_s_sharded': rates['sharded'],
+            'photons_per_s_unsharded': rates['unsharded'],
+            'sharded_over_unsharded': float(np.mean(rates['sharded'])
+                                            / np.mean(rates['unsharded'])),
+            'service_passes_sharded': passes['sharded'],
+            'service_passes_unsharded': passes['unsharded'],
+            'terminal': terminal,
+            'simulate_events': SHARD_EVENTS, 'photons_per_event': NREQUEST,
+            'simulate_s': sim_s, 'hit_channels': nhit,
+            'det_frac': det_frac, 'golden_det_frac': golden_det_frac,
+            'eval_pdf_hitcount_sharded': a,
+            'eval_pdf_hitcount_unsharded': b,
+            'k3_launches': launches, 'card': card}
+    print(json.dumps(line), flush=True)
+    print('phase 16: sharded channels equal to both shards\' DAQ by hand '
+          '(min, sum, OR) in all %d events; %d K3 launches'
+          % (SHARD_EVENTS, launches), flush=True)
+    return launches
+
+
 def main():
     t_start = time.time()
     # ---- 1. device ----------------------------------------------------
@@ -1454,13 +1623,13 @@ def main():
               'photons bit-equal, kernel against plain walker; stats %s; '
               'wall %.3f s vs %.3f s' % (NDRIVER, od_slots, ks.tolist(),
                                           kt, pt), flush=True)
-    for od_slots in (1, 2):
-        bad = referee.terminal_passthrough(gg.geom, n=65536, width=16384,
-                                           od_slots=od_slots)
-        check(not bad, 'referee check 1 (od_slots %d): %s not bit-exact'
-              % (od_slots, bad))
-    print('referee check 1, full demo, 65,536 adversarial terminal '
-          'photons, od_slots 1 and 2: bit-exact', flush=True)
+    t0 = time.time()
+    failures = referee.run_referee(gg.geom)
+    check(not failures, 'referee on the full demo: %s' % failures)
+    print('referee on the full demo: terminal passthrough at widths %s '
+          '(od_slots 1 and 2) and kernel against plain walker at %s, all '
+          'bit-exact, %.1f s' % (referee.WIDTHS, referee.WIDTHS[:2],
+                                 time.time() - t0), flush=True)
 
     # ---- 6. the main path --------------------------------------------
     # each path runs with the launch counts set to 0 just before it
@@ -1709,6 +1878,10 @@ def main():
 
     # ---- 15. a SNO-like detector from GDML ----------------------------
     sno = sno_phase(dev, card)
+
+    # ---- 16. photon-axis sharding on the full demo --------------------
+    w_launches[1] += shard_phase(gg, card, float(np.load(os.path.join(
+        GOLDEN_DIR, 'demo_full_pdf.npz'))['det_frac']))
     print('chip_smoke: %.1f s in all' % (time.time() - t_start))
 
     print('nvidia-smi name, power.limit: %s' % card)

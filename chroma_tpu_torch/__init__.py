@@ -10,4 +10,25 @@ copies, under the same module names.  The MBVH walkers are hand-written
 CUDA kernels (csrc/), built with nvcc on first use.  Entry points run on
 the CUDA card unless the caller passes ``device='cpu'``; on CPU tensors
 each kernel's plain PyTorch version runs instead.
+
+The names below are the JAX package's top-level names, from the port's
+own numpy host modules, so importing the package loads no kernel.
 """
+
+from chroma_tpu_torch import event
+from chroma_tpu_torch.event import Photons, Vertex, Event, Channels
+from chroma_tpu_torch.geometry import (Mesh, Solid, Material, Surface,
+                                       DichroicProps, Geometry, vacuum,
+                                       standard_wavelengths)
+from chroma_tpu_torch.detector import Detector
+from chroma_tpu_torch import make
+from chroma_tpu_torch.stl import mesh_from_stl
+from chroma_tpu_torch.loader import (load_geometry_from_string,
+                                     create_geometry_from_obj)
+
+__all__ = [
+    'event', 'Photons', 'Vertex', 'Event', 'Channels',
+    'Mesh', 'Solid', 'Material', 'Surface', 'DichroicProps', 'Geometry',
+    'vacuum', 'standard_wavelengths', 'Detector', 'make', 'mesh_from_stl',
+    'load_geometry_from_string', 'create_geometry_from_obj',
+]

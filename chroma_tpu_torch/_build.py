@@ -19,10 +19,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
+# the shards of parallel.propagate_sharded call library() from one
+# thread a device, and one process's build shares one work directory
+_BUILD_LOCK = threading.Lock()
 
 # Hopper only.  --fmad=false keeps a*b+c as two roundings, as the plain
 # PyTorch versions compute it, so kernel and plain version agree bit for
@@ -120,7 +124,8 @@ def build():
 def library():
     """The loaded kernel library with every entry point's ctypes
     signature declared."""
-    path, _ = build()
+    with _BUILD_LOCK:
+        path, _ = build()
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mbvh_closest_hit.restype = i

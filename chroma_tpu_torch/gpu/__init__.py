@@ -6,7 +6,8 @@ with the same class names and call shapes.  Every class takes a
 where there is none the constructors raise: the CPU is used only when
 the caller names it.  Photon batches are not padded: the
 JAX package pads to powers of two for XLA's compile cache, which eager
-PyTorch does not need.
+PyTorch does not need.  ``GPUPhotons.propagate(mesh=...)`` shards a
+batch over several devices (``chroma_tpu_torch.parallel``).
 """
 import dataclasses
 
@@ -16,6 +17,7 @@ import torch
 from chroma_tpu_torch import event
 from chroma_tpu_torch.device import default_device, resolve as _device
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry, pack_detector
+from chroma_tpu_torch import parallel
 from chroma_tpu_torch.ops import fused as fused_ops
 from chroma_tpu_torch.ops import photon as photon_ops
 from chroma_tpu_torch.ops.daq import GPUDaq, GPUChannels, run_daq
@@ -24,7 +26,8 @@ from chroma_tpu_torch.ops.propagate import alive_mask, i32, propagate_step
 
 __all__ = ['GPUGeometry', 'GPUDetector', 'GPUPhotons', 'GPUDaq',
            'GPUChannels', 'GPUPDF', 'GPUKernelPDF', 'RNGStream',
-           'get_rng_states', 'default_device', 'run_daq']
+           'create_cuda_context', 'get_rng_states', 'default_device',
+           'run_daq']
 
 
 class RNGStream(object):
@@ -36,10 +39,28 @@ class RNGStream(object):
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(seed))
 
+    def next(self):
+        """One 63-bit seed drawn from the stream, for a batch sharded
+        over a mesh (``parallel.shard_generator``); the JAX package
+        splits its key here."""
+        return int(torch.randint(0, 2 ** 63 - 1, (1,),
+                                 generator=self.generator,
+                                 device=self.generator.device))
+
 
 def get_rng_states(size=None, seed=1, device=None):
     """API-compatible RNG construction; ``size`` is ignored."""
     return RNGStream(seed, device)
+
+
+def create_cuda_context(device=None):
+    """A context object whose ``pop()`` does nothing, kept so that
+    drivers written for the reference run unchanged: PyTorch owns the
+    card's context."""
+    class _Context(object):
+        def pop(self):
+            pass
+    return _Context()
 
 
 class GPUGeometry(object):
@@ -52,6 +73,22 @@ class GPUGeometry(object):
                                   wavelengths=wavelengths, times=times)
         self.det = None
         self.solid_id_map = self.geom.solid_id_map
+
+    def tables_on(self, device):
+        """(geom, det) on ``device``: the tables themselves on their own
+        device; elsewhere a copy of every tensor, made once a device and
+        kept on this object (packing again would cost the host minutes
+        on a large detector)."""
+        device = torch.device(device)
+        if device == self.geom.mbvh_rows.device:
+            return self.geom, self.det
+        copies = self.__dict__.setdefault('_copies', {})
+        src, geom, det = copies.get(device, (None, None, None))
+        if src is not self.geom:        # first use, or recoloured since
+            geom = self.geom.to(device)
+            det = None if self.det is None else self.det.to(device)
+            copies[device] = (self.geom, geom, det)
+        return geom, det
 
     def device_usage_str(self):
         total = sum(v.numel() * v.element_size()
@@ -159,7 +196,7 @@ class GPUPhotons(object):
     def propagate(self, gpu_geometry, rng_states, max_steps=100,
                   use_weights=False, scatter_first=0, track=False,
                   driver='fused', width=None, service_every=None,
-                  od_slots=1):
+                  od_slots=1, mesh=None):
         """Propagate every photon to termination or ``max_steps``
         (reference gpu/photon.py:192), drawing from the generator of
         ``rng_states``.  ``use_weights`` and ``scatter_first`` are
@@ -179,8 +216,34 @@ class GPUPhotons(object):
         photons as uploaded.  Each step draws one (n, NDRAWS) block in
         which a photon reads the row of its ``index``, as the step loop
         does, so from one generator seed the last snapshot equals
-        ``driver='steps'`` bit for bit."""
+        ``driver='steps'`` bit for bit.
+
+        ``mesh`` (``parallel.make_photon_mesh``) of more than one device,
+        without ``track``: the batch is padded to a multiple of the mesh,
+        sharded over it with one seed from ``rng_states.next()``
+        (``parallel.propagate_sharded``), put back in upload order and
+        cut to its length; ``last_stats`` is the shards' stats summed.
+        The step loop has no sharded form (``driver='steps'`` raises).
+        """
         geom = gpu_geometry.geom
+        if mesh is not None and mesh.size > 1 and not track:
+            if driver != 'fused':
+                raise ValueError("a mesh of %d devices propagates with "
+                                 "driver='fused' only, got %r"
+                                 % (mesh.size, driver))
+            n = len(self)
+            state, _ = parallel.pad_to_multiple(self.state, mesh.size)
+            state, stats = parallel.propagate_sharded(
+                state, gpu_geometry, rng_states.next(), mesh,
+                max_steps=max_steps, use_weights=use_weights,
+                scatter_first=scatter_first, od_slots=od_slots,
+                width=width,
+                service_every=service_every or fused_ops.SERVICE_EVERY)
+            state = photon_ops.unsort_photons(state)
+            self.state = {k: v[:n] for k, v in state.items()}
+            self.last_stats = stats.cpu().numpy()
+            self.last_steps = None
+            return None
         if track:
             return self._propagate_tracking(geom, rng_states, max_steps,
                                             scatter_first, use_weights)

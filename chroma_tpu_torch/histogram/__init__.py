@@ -1,5 +1,7 @@
-"""Histogram utilities (parity: chroma/histogram).  Only ``Histogram``
-is carried: it is what ``generator.vertex.from_histogram`` reads."""
+"""Histogram utilities (counterpart of chroma_tpu/histogram; reference:
+chroma/histogram)."""
 from chroma_tpu_torch.histogram.histogram import Histogram
+from chroma_tpu_torch.histogram.histogramdd import HistogramDD
+from chroma_tpu_torch.histogram.graph import Graph
 
-__all__ = ['Histogram']
+__all__ = ['Histogram', 'HistogramDD', 'Graph']

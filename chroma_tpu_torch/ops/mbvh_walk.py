@@ -37,6 +37,7 @@ field word w of lane i at w * n + i), read once per warp.
 state (transposed, biased int16 codes), in numpy.
 """
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -71,13 +72,21 @@ _INST_KEYS = ('irot', 'iorg', 'idir', 'iinv', 'inoid')
 
 
 class LaunchCounter:
-    """Counts kernel launches, so a run can show which path it took."""
+    """Counts kernel launches, so a run can show which path it took.
+    The shards of parallel.propagate_sharded launch from one thread a
+    device, so a launch counts under a lock."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self.launches += 1
 
     def reset(self):
-        self.launches = 0
+        with self._lock:
+            self.launches = 0
 
 
 closest_hit_launches = LaunchCounter()
@@ -473,7 +482,7 @@ def closest_hit_cuda(rows, org, dirv, lht, active, sq, depth, instanced,
     if err != 0:
         raise RuntimeError('mbvh_closest_hit launch failed: cudaError %d'
                            % err)
-    closest_hit_launches.launches += 1
+    closest_hit_launches.add()
     return out
 
 
@@ -752,7 +761,7 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
     if err != 0:
         raise RuntimeError('mbvh_walk_window launch failed: cudaError %d'
                            % err)
-    walk_window_launches[od_slots].launches += 1
+    walk_window_launches[od_slots].add()
     return W
 
 

@@ -1,10 +1,22 @@
 """Checks of the port's physics that need no other package.
 
-Referee check 1 of chroma_tpu/referee.py, terminal passthrough: photons
-that are terminal on arrival must leave ``propagate_fused`` with every
-word bit-exact: denormal floats, NaN payloads in pos/dir and every flag
-bit.  A float select or a flush-to-zero anywhere in the driver's pack,
-retire or unpack plumbing corrupts them.
+``run_referee`` runs the two checks of chroma_tpu/referee.py at each
+lane width of ``WIDTHS``:
+
+1. terminal passthrough: photons that are terminal on arrival must
+   leave ``propagate_fused`` with every word bit-exact: denormal
+   floats, NaN payloads in pos/dir and every flag bit.  A float select
+   or a flush-to-zero anywhere in the driver's pack, retire or unpack
+   plumbing corrupts them.  Run with one and with two on-deck slots.
+2. kernel against plain walker (the JAX package's pallas-vs-jnp): live
+   photons through ``propagate_fused`` with the CUDA window kernel and
+   with ``plain_walker=True``, from one generator seed, must come out
+   bit-equal in every field, at the first two widths.  On CPU tensors
+   both runs take the plain walker, so the check compares it with
+   itself, and its log line says so.
+
+Run directly:  python -m chroma_tpu_torch.referee [tiny|full]
+(on the card; exits 1 on a failure).
 
 The gate-box checks (``gate_box_checks``): each gated physics model
 (bulk reemission, WLS, dichroic and thin-film surfaces) in its
@@ -12,11 +24,17 @@ The gate-box checks (``gate_box_checks``): each gated physics model
 outcome fractions against the probabilities the scene specifies, and
 weighted against unweighted detection.
 """
+import sys
+
 import numpy as np
 import torch
 
 from chroma_tpu_torch import event
 from chroma_tpu_torch.ops import fused
+
+WIDTHS = (2048, 4096, 8192)
+# walker iterations between service passes in the referee's runs
+_SE = 4
 
 
 def adversarial_terminal_state(n, seed=3):
@@ -47,6 +65,43 @@ def adversarial_terminal_state(n, seed=3):
         index=np.arange(n, dtype=np.int64))
 
 
+def live_state(n, seed=5):
+    """chroma_tpu/referee.py ``_live_state`` in numpy: ``n`` live
+    photons from the origin in random directions."""
+    rng = np.random.RandomState(seed)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1)[:, None]
+    pol = np.cross(rng.normal(size=(n, 3)), dirs).astype(np.float32)
+    pol /= np.linalg.norm(pol, axis=1)[:, None]
+    return dict(
+        pos=np.zeros((n, 3), np.float32), dir=dirs, pol=pol,
+        wavelength=rng.uniform(300, 600, n).astype(np.float32),
+        t=np.zeros(n, np.float32), weight=np.ones(n, np.float32),
+        flags=np.zeros(n, np.int32),
+        last_hit_triangle=np.full(n, -1, np.int32),
+        evidx=np.zeros(n, np.int32), index=np.arange(n, dtype=np.int64))
+
+
+def _diff_keys(a, b):
+    """Names (with the count of differing 32-bit words) of the fields
+    of ``b`` that are not bit-equal to those of ``a``; numpy arrays or
+    tensors."""
+    bad = []
+    for k in a:
+        va = np.ascontiguousarray(_numpy(a[k]))
+        vb = np.ascontiguousarray(_numpy(b[k]))
+        if not (va.shape == vb.shape and va.dtype == vb.dtype
+                and np.array_equal(va.view(np.uint8), vb.view(np.uint8))):
+            nd = int(np.sum(va.view(np.uint32) != vb.view(np.uint32))) \
+                if va.shape == vb.shape and va.dtype == vb.dtype else -1
+            bad.append('%s (%d words differ)' % (k, nd))
+    return bad
+
+
+def _numpy(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 def terminal_passthrough(tables, n=4096, width=1024, service_every=4,
                          od_slots=1):
     """Run the adversarial state through ``propagate_fused`` on the
@@ -60,13 +115,80 @@ def terminal_passthrough(tables, n=4096, width=1024, service_every=4,
     out, _ = fused.propagate_fused(
         state, tables, fused.uniform_draws(gen), max_steps=10, width=width,
         service_every=service_every, od_slots=od_slots)
-    bad = []
-    for k, v in ref.items():
-        got = np.ascontiguousarray(out[k].cpu().numpy())
-        if got.dtype != v.dtype or not np.array_equal(
-                got.view(np.uint8), v.view(np.uint8)):
-            bad.append(k)
-    return bad
+    return [k.split()[0] for k in _diff_keys(ref, out)]
+
+
+def kernel_against_plain(tables, n, width, seed=11):
+    """Live photons (``live_state``) through ``propagate_fused`` with the
+    window kernel and with the plain walker, each from a generator
+    seeded with ``seed``; returns ``_diff_keys`` of the two results."""
+    dev = tables.mbvh_rows.device
+    outs = []
+    for plain in (False, True):
+        state = {k: torch.from_numpy(v).to(dev)
+                 for k, v in live_state(n).items()}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out, _ = fused.propagate_fused(
+            state, tables, fused.uniform_draws(gen), max_steps=16,
+            width=width, service_every=_SE, plain_walker=plain)
+        outs.append(out)
+    return _diff_keys(*outs)
+
+
+def run_referee(tables, widths=WIDTHS, verbose=True,
+                checks=('terminal', 'crosswalk')):
+    """Run the selected checks against packed tables ``tables`` on their
+    device; returns a list of failure strings (empty = pass)."""
+    failures = []
+    on_card = tables.mbvh_rows.device.type == 'cuda'
+
+    def log(msg):
+        if verbose:
+            print('[referee] ' + msg, flush=True)
+
+    for w in widths if 'terminal' in checks else ():
+        for od_slots in (1, 2):
+            bad = terminal_passthrough(tables, n=2 * w, width=w,
+                                       service_every=_SE, od_slots=od_slots)
+            if bad:
+                failures.append('terminal passthrough w=%d od_slots=%d: %s'
+                                % (w, od_slots, ', '.join(bad)))
+            log('terminal passthrough w=%-5d od_slots=%d %s'
+                % (w, od_slots, 'FAIL' if bad else 'ok'))
+    for w in widths[:2] if 'crosswalk' in checks else ():
+        bad = kernel_against_plain(tables, 2 * w, w)
+        if bad:
+            failures.append('kernel-vs-plain w=%d: %s' % (w, ', '.join(bad)))
+        log('kernel-vs-plain     w=%-5d %s%s'
+            % (w, 'FAIL' if bad else 'ok', '' if on_card else
+               ' (CPU tensors: the plain walker against itself, no '
+               'kernel ran)'))
+    return failures
+
+
+def main(argv=None):
+    """``python -m chroma_tpu_torch.referee [tiny|full]``: both checks
+    on the demo detector's tables (from the table cache, built on a
+    miss) on the card; exits 1 on a failure."""
+    from chroma_tpu_torch import demo, gpu
+    argv = sys.argv[1:] if argv is None else argv
+    which = argv[0] if argv else 'tiny'
+    if which not in ('tiny', 'full'):
+        raise SystemExit('usage: python -m chroma_tpu_torch.referee '
+                         '[tiny|full]')
+    gg = gpu.GPUDetector.from_table_cache(which)
+    if gg is None:
+        geo = demo.detector() if which == 'full' else demo.tiny()
+        geo.flatten()
+        gg = gpu.GPUDetector(geo)
+    failures = run_referee(gg.geom)
+    if failures:
+        print('[referee] FAILED:')
+        for f in failures:
+            print('  ' + f)
+        sys.exit(1)
+    print('[referee] all checks passed')
 
 
 def _flag_fraction(flags, bit):
@@ -180,3 +302,7 @@ def gate_box_checks(gate, device, n=200000, seed=0):
                 float(det.sum()),
                 float(np.sqrt(n * (det.var() + wdet.var())))))
     return out
+
+
+if __name__ == '__main__':
+    main()

@@ -1,23 +1,26 @@
 """Simulation: batch photon bundles, propagate them, digitize the hits,
 and fill or evaluate the PDFs a likelihood fit reads.
 
-Counterpart of chroma_tpu/sim.py on one device.  The event batching and
-de-batching is the JAX package's.  Photon generation from particle
-vertices runs in a pool of worker processes (ZMQ), as there; set
-``geant4_processes=0`` (the default here) to feed Photons directly.
-Multi-device meshes are not ported yet.
+Counterpart of chroma_tpu/sim.py.  The event batching and de-batching
+is the JAX package's.  Photon generation from particle vertices runs in
+a pool of worker processes (ZMQ), as there; set ``geant4_processes=0``
+(the default here) to feed Photons directly.  ``devices`` or ``mesh``
+shard every propagation over several devices (chroma_tpu_torch.parallel).
 """
 import os
 import time
 
 import numpy as np
+import torch
 
 from chroma_tpu_torch import event
 from chroma_tpu_torch import generator
 from chroma_tpu_torch import itertoolset
 from chroma_tpu_torch import gpu
+from chroma_tpu_torch import parallel
 from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.ops import daq as daq_ops
+from chroma_tpu_torch.ops import photon as photon_ops
 
 
 def pick_seed():
@@ -41,7 +44,7 @@ def _photon_tracks(tracking, start, end):
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
                  device=None, driver='fused', photon_tracking=False,
-                 particle_tracking=False):
+                 particle_tracking=False, devices=None, mesh=None):
         """``detector``: a Geometry/Detector (flattened here if needed),
         a geometry string for chroma_tpu_torch.loader, or packed tables
         already on a device (a ``gpu.GPUDetector`` or ``gpu.GPUGeometry``,
@@ -59,7 +62,19 @@ class Simulation(object):
         ``GPUPhotons.propagate``'s: 'fused' (the on-deck lane-pool
         driver) or 'steps' (the step loop).  ``photon_tracking`` runs
         the tracking mode instead and fills each event's
-        ``photon_tracks``."""
+        ``photon_tracks``.
+
+        ``devices`` (a device list, repeats allowed) or ``mesh`` (a
+        ``parallel.PhotonMesh``) shard every propagation over those
+        devices; ``device`` then defaults to the mesh's first.  With
+        neither, tables on a card and more than one card in the
+        process, the mesh is every card.  A mesh of one device runs
+        unsharded.  Sharding needs ``driver='fused'``: the step loop
+        raises ``ValueError`` when it propagates on a larger mesh."""
+        if mesh is None and devices is not None:
+            mesh = parallel.make_photon_mesh(devices)
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.driver = driver
         self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else seed
@@ -93,6 +108,10 @@ class Simulation(object):
             self.gpu_daq = gpu.GPUDaq(self.gpu_geometry)
             self.gpu_pdf = gpu.GPUPDF()
             self.gpu_pdf_kernel = gpu.GPUKernelPDF()
+        if mesh is None and self.device.type == 'cuda' \
+                and torch.cuda.device_count() > 1:
+            mesh = parallel.make_photon_mesh()
+        self.mesh = mesh
         self.rng_states = gpu.get_rng_states(seed=self.seed,
                                              device=self.device)
         self.pdf_config = None
@@ -120,19 +139,41 @@ class Simulation(object):
         gpu_photons = gpu.GPUPhotons(batch_photons, self.device,
                                      copy_triangles=False,
                                      copy_weights=False)
-        tracking = gpu_photons.propagate(
-            self.gpu_geometry, self.rng_states, max_steps=max_steps,
-            driver=self.driver, track=self.photon_tracking)
         is_detector = self.is_detector
+        nch = self.gpu_geometry.nchannels if is_detector else 0
+        channels = None
+        if run_daq and is_detector and self.mesh is not None \
+                and self.mesh.size > 1 and not self.photon_tracking:
+            # propagation and DAQ in each shard, the channels combined
+            # across shards (min, sum, OR) instead of one DAQ over the
+            # gathered batch
+            if self.driver != 'fused':
+                raise ValueError("a mesh of %d devices propagates with "
+                                 "driver='fused' only, got %r"
+                                 % (self.mesh.size, self.driver))
+            n = len(gpu_photons)
+            state, _ = parallel.pad_to_multiple(gpu_photons.state,
+                                                self.mesh.size)
+            state, channels = parallel.propagate_and_daq_sharded(
+                state, self.gpu_geometry, self.rng_states.next(),
+                self.mesh, nch, max_steps=max_steps,
+                nevents=len(batch_events))
+            state = photon_ops.unsort_photons(state)
+            gpu_photons.state = {k: v[:n] for k, v in state.items()}
+            tracking = None
+        else:
+            tracking = gpu_photons.propagate(
+                self.gpu_geometry, self.rng_states, max_steps=max_steps,
+                driver=self.driver, track=self.photon_tracking,
+                mesh=self.mesh)
 
         if keep_photons_end:
             batch_photons_end = gpu_photons.get()
         if is_detector and (keep_hits or keep_flat_hits):
             batch_hits = gpu_photons.get_flat_hits(self.gpu_geometry)
-        if is_detector and run_daq:
+        if is_detector and run_daq and channels is None:
             # one DAQ over the whole batch, into per-event channel blocks
             # keyed by evidx
-            nch = self.gpu_geometry.nchannels
             u = daq_ops.daq_draws(self.rng_states.generator, 1,
                                   len(gpu_photons))
             channels = daq_ops.run_daq(
@@ -242,7 +283,7 @@ class Simulation(object):
         for ev in iterable:
             gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device)
             gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                                  driver=self.driver)
+                                  driver=self.driver, mesh=self.mesh)
             self.gpu_pdf.add_hits_to_pdf(
                 self._acquire(self.gpu_daq, (gpu_photons, 1.0)))
         return self.gpu_pdf.get_pdfs()
@@ -270,10 +311,12 @@ class Simulation(object):
                                      ncopies=nreps * nscatter)
             no_scatter.propagate(self.gpu_geometry, self.rng_states,
                                  use_weights=True, scatter_first=-1,
-                                 max_steps=10, driver=self.driver)
+                                 max_steps=10, driver=self.driver,
+                                 mesh=self.mesh)
             scatter.propagate(self.gpu_geometry, self.rng_states,
                               use_weights=True, scatter_first=1,
-                              max_steps=5, driver=self.driver)
+                              max_steps=5, driver=self.driver,
+                              mesh=self.mesh)
             stride = no_scatter.stride
             for i in range(no_scatter.ncopies):
                 ns_slice = no_scatter.select(event.SURFACE_DETECT,
@@ -302,7 +345,7 @@ class Simulation(object):
             gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device,
                                          ncopies=nreps)
             gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                                  driver=self.driver)
+                                  driver=self.driver, mesh=self.mesh)
             for ph_slice in gpu_photons.iterate_copies():
                 for _ in range(ndaq):
                     yield self._acquire(self.gpu_daq, (ph_slice, 1.0))

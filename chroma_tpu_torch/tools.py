@@ -1,7 +1,68 @@
-"""Host utilities the port uses (counterpart of chroma_tpu/tools.py)."""
+"""Assorted host utilities (counterpart of chroma_tpu/tools.py;
+reference: chroma/tools.py)."""
+import functools
+import math
+import sys
+import time
+
 import numpy as np
 
 from chroma_tpu_torch.transform import normalize
+
+
+def count_nonzero(array):
+    return int((array != 0).sum())
+
+
+def filled_array(value, shape, dtype):
+    a = np.empty(shape=shape, dtype=dtype)
+    a.fill(value)
+    return a
+
+
+def timeit(func):
+    """Decorator printing the wall-clock time of each call."""
+    @functools.wraps(func)
+    def f(*args, **kwargs):
+        t0 = time.time()
+        retval = func(*args, **kwargs)
+        elapsed = time.time() - t0
+        print('%s elapsed in %s().' % (str(elapsed), func.__name__))
+        return retval
+    return f
+
+
+def profile_if_possible(func):
+    """Hook point for line profilers; identity unless kernprof injects
+    a global `profile` builtin."""
+    prof = getattr(__builtins__, 'profile', None) if not isinstance(
+        __builtins__, dict) else __builtins__.get('profile')
+    return prof(func) if prof is not None else func
+
+
+def memoize(func):
+    cache = {}
+
+    @functools.wraps(func)
+    def f(*args):
+        if args not in cache:
+            cache[args] = func(*args)
+        return cache[args]
+    return f
+
+
+def read_csv(filename):
+    """(n,2) float array from a two-column csv/whitespace profile file;
+    '#' comments skipped."""
+    rows = []
+    with open(filename) as f:
+        for line in f:
+            line = line.split('#')[0].strip()
+            if not line:
+                continue
+            parts = line.replace(',', ' ').split()
+            rows.append([float(parts[0]), float(parts[1])])
+    return np.asarray(rows, dtype=float)
 
 
 def offset(points, x):
@@ -80,3 +141,23 @@ def from_film(position, axis1=(0, 0, 1), axis2=(1, 0, 0), size=(800, 600),
     focal_point = position
     directions = normalize(focal_point - grid)
     return grid, directions
+
+
+def ufloat_to_str(x):
+    msd = -int(math.floor(math.log10(x.std_dev)))
+    return '%.*f +/- %.*f' % (msd, round(x.nominal_value, msd),
+                              msd, round(x.std_dev, msd))
+
+
+def enable_debug_on_crash():
+    """Drop into pdb on uncaught exceptions (reference:
+    chroma/tools.py debugger hook)."""
+    def hook(type_, value, tb):
+        if hasattr(sys, 'ps1') or not sys.stderr.isatty():
+            sys.__excepthook__(type_, value, tb)
+        else:
+            import traceback
+            import pdb
+            traceback.print_exception(type_, value, tb)
+            pdb.post_mortem(tb)
+    sys.excepthook = hook

@@ -130,9 +130,10 @@ def test_port_never_imports_jax():
     file, a served request in both protocols, a rendered frame, a
     hybrid render, a SNO-like GDML detector through the RAT loader, CSG
     booleans on both backends, the demo models, the BVH tools, the geo
-    and bvh commands on a temporary cache and the ntuple writer (under
-    tests/fake_uproot.py) must leave jax and every module of the JAX
-    package chroma_tpu out of sys.modules."""
+    and bvh commands on a temporary cache, the ntuple writer (under
+    tests/fake_uproot.py), a simulation sharded over ['cpu', 'cpu'], a
+    parabola fit and a wavelength colour map must leave jax and every
+    module of the JAX package chroma_tpu out of sys.modules."""
     code = '\n'.join([
         'import importlib, itertools, os, pkgutil, sys, tempfile',
         'import numpy as np',
@@ -173,7 +174,9 @@ def test_port_never_imports_jax():
         "             'cli.cam', 'ops.render', 'ops.hybrid', 'csg',",
         "             'rat', 'rat.gdml', 'rat.loader', 'rat.ratdb_parser',",
         "             'models', 'bvh.optimize', 'bvh.bvh', 'bvh.build',",
-        "             'cli.geo', 'cli.bvh', 'io.root', 'io.ntuple'):",
+        "             'cli.geo', 'cli.bvh', 'io.root', 'io.ntuple',",
+        "             'parallel', 'parabola', 'color', 'color.colormap',",
+        "             'histogram.histogramdd', 'histogram.graph', 'tools'):",
         "    assert 'chroma_tpu_torch.' + name in names, name",
         "    assert 'chroma_tpu_torch.' + name in sys.modules, name",
         'import chip_smoke',
@@ -231,6 +234,15 @@ def test_port_never_imports_jax():
         'from chroma_tpu_torch.io.ntuple import NTupleWriter',
         "with NTupleWriter(os.path.join(tmp, 'e.root'), detector=sno) as w:",
         '    w.write_event(ev)',
+        "msim = Simulation(sim.gpu_geometry, seed=3, devices=['cpu', 'cpu'])",
+        'assert msim.mesh.size == 2',
+        'mev = next(msim.simulate([ph], run_daq=True, keep_photons_end=True))',
+        'assert len(mev.photons_end) == 500 and mev.channels is not None',
+        'from chroma_tpu_torch.parabola import parabola_fit',
+        'from chroma_tpu_torch.color import map_wavelength',
+        'x = np.random.RandomState(0).uniform(-1, 1, (20, 2))',
+        'assert np.isfinite(parabola_fit(x, (x ** 2).sum(axis=1))[4])',
+        'assert map_wavelength([450.0]).shape == (1, 3)',
         "bad = sorted(m for m in sys.modules if m in ('jax', 'chroma_tpu')",
         "             or m.startswith(('jax.', 'jaxlib', 'flax',",
         "                              'chroma_tpu.')))",
@@ -250,13 +262,14 @@ def test_port_never_imports_jax():
     'tables_from_numpy', 'pack_geometry', 'pack_detector', 'load_tables',
     'make_photon_state', 'ondeck_empty', 'walker_state_from_jax',
     'load_photons', 'GPURays', 'Camera', 'ChromaServer', 'ChromaRATServer',
-    'cli_sim', 'cli_cam', 'cli_server'])
+    'cli_sim', 'cli_cam', 'cli_server', 'make_photon_mesh',
+    'Simulation_devices', 'referee_main'])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """With no card and no ``device`` argument every entry point and
     every public function that makes tensors raises (naming
     device='cpu'); nothing falls back to the CPU."""
     import torch
-    from chroma_tpu_torch import benchmark, gpu, host
+    from chroma_tpu_torch import benchmark, gpu, host, parallel, referee
     from chroma_tpu_torch.ops import geometry_pack, mbvh_walk, propagate, \
         table_cache
     from chroma_tpu_torch.camera import Camera
@@ -295,8 +308,11 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
                 cli_sim=lambda: sim.main([scene, '-g', '0']),
                 cli_cam=lambda: cam.main([scene, '-o', 'unwritten.png']),
                 cli_server=lambda: server.main(
-                    [scene, '-a', 'ipc:///tmp/chroma_tpu_torch_unbound']))[
-                        entry]
+                    [scene, '-a', 'ipc:///tmp/chroma_tpu_torch_unbound']),
+                make_photon_mesh=parallel.make_photon_mesh,
+                Simulation_devices=lambda: Simulation(geo, seed=1,
+                                                      devices=None),
+                referee_main=lambda: referee.main(['tiny']))[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     # the CPU, named, still works
