@@ -13,12 +13,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      scene flat and instanced with axis-parallel rays, 500,000 center
      rays in the full demo and, flat, in demo.tiny): equal triangles and
      material codes, bit-equal distances and normals; both times, and
-     the kernel's bound counted from this run's walks;
-  4. the on-deck window kernel (K3, K4) against its plain version: flat
-     sphere, demo.tiny, the tie scene and the full demo, od_slots 1 and
-     2, ragged widths; a service window and a long window in which every
-     walk drains; every state field bit-equal; both times and the bound
-     at full-demo width;
+     the kernel's bound counted from this run's walks; on the same
+     500,000 rays in demo.tiny packed flat, K1 against the escape-rope
+     walker (ops/mesh.py ``intersect_mesh`` and ``distance_to_mesh``,
+     plain PyTorch over its own BVH): triangle ids equal on >= 0.999 of
+     the rays, distances within 1e-4 relative where they are;
+  4. the window kernel against its plain version in every variant: K3,
+     K4 and K5 (od_slots 1, 2, 0), each pruning and not (K6): flat
+     sphere, demo.tiny, the tie scene and the full demo, ragged widths;
+     a service window and a long window in which every walk drains;
+     every state field bit-equal and the active lane-iteration count
+     (stats[3]) equal; both times and the bound at full-demo width;
   5. the whole on-deck driver on demo.tiny, window kernel against plain
      walker, same generator seed: final photons bit-equal;
      ``referee.run_referee`` on the full demo: terminal passthrough at
@@ -27,10 +32,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      bit-exact;
   6. the main path: full demo tables from the table cache (built and
      saved on a miss); 500,000 center rays through ``intersect_mesh``;
-     1,048,576 photons through ``GPUPhotons.propagate`` on the on-deck
-     driver (od_slots 1: one warm-up, three timed runs; od_slots 2: one
-     warm-up, one timed run) and on the step loop (one warm-up, three
-     timed runs); >= 99% of photons must end terminal in each;
+     1,048,576 photons through ``GPUPhotons.propagate``, alternated (one
+     warm-up, then five timed runs a side, round r at seed r + 1): the
+     on-deck driver with drain compaction (the default) and without, and
+     the step loop with ``sort_every`` 0 and 1 (K2's ms a step beside);
+     then one run each
+     of od_slots 2, ``ondeck=False`` (K5), ``prune='off'`` (K6 on K3, K4
+     and K5), ``service_frac=0.25``, ``chains=3`` and
+     ``driver='compacting'``; each with its photons/s, stats, active
+     share (``collect_stats``) and launches by variant; >= 99% of
+     photons terminal and in upload order in each;
   7. full-demo physics (on-deck driver) against
      tests/golden/demo_full_pdf.npz;
   8. ``Simulation.simulate(run_daq=True)`` on demo.tiny through both
@@ -75,10 +86,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      (``RATGeoLoader``, ``add_pmt_info``, ``build_detector``,
      ``flatten``; host seconds and peak RSS printed), packed flat into
      the table cache; 500,000 center rays through ``intersect_mesh`` (K1)
-     bit-equal to the plain walker and timed; one flat K3 window at
-     65,536 lanes bit-equal and timed; 1,048,576 photons through both
-     drivers (>= 99% terminal, something detected, every hit channel a
-     channel); then ``chroma-torch-geo save``, ``-bvh create/stat/
+     bit-equal to the plain walker and timed; one flat K3 and one flat
+     K5 window at 65,536 lanes bit-equal and timed; 1,048,576 photons
+     through both drivers and the driver without on-deck slots (>= 99%
+     terminal, something detected, every hit channel a channel); then
+     ``chroma-torch-geo save``, ``-bvh create/stat/
      optimize`` and ``-sim`` to an npz file on a 100-PMT copy;
  16. photon-axis sharding on the full demo over two shards on the one
      card (``make_photon_mesh(['cuda:0', 'cuda:0'])``: no copies between
@@ -139,6 +151,8 @@ from chroma_tpu_torch.ops import render as render_ops  # noqa: E402
 from chroma_tpu_torch.tools import from_film  # noqa: E402
 from chroma_tpu_torch.ops import daq as daq_ops, fused  # noqa: E402
 from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
+from chroma_tpu_torch.ops import mesh as escape_mesh  # noqa: E402
+from chroma_tpu_torch.loader import create_geometry_from_obj  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
 from chroma_tpu_torch.likelihood import Likelihood  # noqa: E402
 from chroma_tpu_torch.ops.propagate import TERMINAL, i32  # noqa: E402
@@ -170,6 +184,7 @@ SNO_GUN_EVENTS = 4      # chroma-torch-sim events on it
 SHARD_DEVICES = ('cuda:0', 'cuda:0')
 SHARD_EVENTS = 4        # events of NREQUEST photons through Simulation
 SHARD_ROUNDS = 3        # timed propagations a side, alternated
+ROUNDS = 5              # phase 6: timed propagations a side, alternated
 # ray counts at the edges of a warp (one warp walks one ray) and of a
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
 GROUP_EDGES = (1, 31, 33, 85, 129, 341, 1001)
@@ -551,6 +566,41 @@ def compare_walk(tables, org, dirv, dev, lht=None, active=None):
     return int((k['triangle'] >= 0).sum()), err, args
 
 
+def escape_walker_check(tables, k1_args, k1_ms, card):
+    """Phase 3's second oracle: K1's triangle ids and distances against
+    the escape-rope walker (ops/mesh.py, plain PyTorch on the card, its
+    own BVH and tables) through ``intersect_mesh`` and
+    ``distance_to_mesh`` on K1's rays.  Ids must agree on >= 0.999 of
+    the rays, distances within 1e-4 relative where they do."""
+    org, dirv = k1_args[1], k1_args[2]
+    k = mbvh_walk.closest_hit_cuda(*k1_args)
+    n = org.shape[0]
+    for name, fn in (('intersect_mesh', escape_mesh.intersect_mesh),
+                     ('distance_to_mesh', escape_mesh.distance_to_mesh)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tri, dist = fn(org, dirv, tables)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        same = k['triangle'] == tri
+        share = float(same.float().mean())
+        both = same & (tri >= 0)
+        rel = ((k['distance'][both] - dist[both]).abs()
+               / dist[both]).max() if both.any() else torch.zeros(())
+        print('escape-rope walker (ops/mesh.%s) against K1, demo.tiny flat '
+              '(%d nodes), %d rays: triangle ids equal on %.6f of rays '
+              '(%d hits), distances where they agree within %.3g relative; '
+              'escape walker %.3f s (plain PyTorch on the card, host clock), '
+              'K1 %.3f ms (%s)'
+              % (name, tables.nodes.shape[0], n, share,
+                 int((tri >= 0).sum()), float(rel), secs, k1_ms, card),
+              flush=True)
+        check(share >= 0.999, 'the escape-rope walker agrees with K1 on '
+              'only %.6f of rays' % share)
+        check(float(rel) <= 1e-4, 'escape-rope walker distances differ '
+              'from K1 by %.3g relative' % float(rel))
+
+
 def rays(n, seed):
     rng = np.random.RandomState(seed)
     d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -592,10 +642,28 @@ def axis_state(tables, od_slots, dev):
         every, [(o, -d, every), (o, d.roll(2, 0), every)][:od_slots])
 
 
-def compare_window(tables, n, od_slots, seed, what, state=None):
+# the window kernel's variants, as keys of walk_window_launches: K3, K4,
+# K5 pruning, then the same without pruning (K6)
+WINDOW_KEYS = tuple(mbvh_walk.window_key(od, prune)
+                    for prune in (True, False) for od in (1, 2, 0))
+
+
+def key_parts(key):
+    """(od_slots, prune) of a ``walk_window_launches`` key."""
+    return (key, True) if isinstance(key, int) else (key[0], False)
+
+
+def variant(od_slots, prune=True):
+    """The kernel's name for a window variant: K3/K4/K5, K6 unpruned."""
+    k = {0: 'K5', 1: 'K3', 2: 'K4'}[od_slots]
+    return k if prune else 'K6 (%s, prune off)' % k
+
+
+def compare_window(tables, n, od_slots, seed, what, state=None, prune=True):
     """Window kernel against plain from one seeded state (``state``, or
     a random one of ``n`` lanes): a service window, then a long window
-    in which every walk drains."""
+    in which every walk drains; the state bit-equal and the active
+    lane-iterations (stats[3]) equal after each."""
     depth, inst = int(tables.mbvh_depth), bool(tables.mbvh_instanced)
     args = mbvh_walk.root_seed_args(tables)
     k = state if state is not None else mbvh_walk.random_window_state(
@@ -603,21 +671,33 @@ def compare_window(tables, n, od_slots, seed, what, state=None):
         od_slots, seed)
     p = clone_state(k)
     err = 0.0
+    counts = []
     for iters in (fused.SERVICE_EVERY, LONG_WINDOW):
+        ck = torch.zeros((), dtype=torch.int64, device=k['act'].device)
+        cp = torch.zeros_like(ck)
         mbvh_walk.walk_window_cuda(
             tables.mbvh_rows, k, iters, depth, inst,
-            tmbvh.tquant_scale(tables), od_slots, *args)
+            tmbvh.tquant_scale(tables), od_slots, *args, prune=prune,
+            nactive=ck)
         torch.cuda.synchronize()
-        tmbvh.walk_window(tables, p, iters, od_slots, *args, plain=True)
-        err = max(err, compare_state(k, p, '%s, %d iterations'
-                                     % (what, iters)))
+        tmbvh.walk_window(tables, p, iters, od_slots, *args, plain=True,
+                          prune=prune, nactive=cp)
+        err = max(err, compare_state(k, p, '%s, %s, %d iterations'
+                                     % (what, variant(od_slots, prune),
+                                        iters)))
+        check(int(ck) == int(cp), '%s, %s: the kernel counted %d active '
+              'lane-iterations, the plain version %d'
+              % (what, variant(od_slots, prune), int(ck), int(cp)))
+        counts.append(int(ck))
     check(not k['act'].any() and bool((k['lvl'] < 0).all()),
           '%s: walks left after the long window' % what)
     parked = int(((k['pad'] & 1) != 0).sum())
-    check(parked > 0 or n < 32, '%s: no walk parked' % what)
-    print('window %s, od_slots %d: %d lanes, %d parked, bit-equal after '
-          '%d and %d iterations'
-          % (what, od_slots, n, parked, fused.SERVICE_EVERY, LONG_WINDOW))
+    check(parked > 0 or n < 32 or od_slots == 0,
+          '%s: no walk parked' % what)
+    print('window %s, %s, od_slots %d: %d lanes, %d parked, bit-equal '
+          'after %d and %d iterations, active lane-iterations %s equal'
+          % (what, variant(od_slots, prune), od_slots, n, parked,
+             fused.SERVICE_EVERY, LONG_WINDOW, counts))
     return err
 
 
@@ -629,23 +709,29 @@ def state_bytes(W):
                for k, v in W.items())
 
 
-def window_bound(tables, W0, od_slots, args):
+# fields the window without on-deck slots (K5) reads but never writes
+K5_READ_ONLY = ('org', 'dir', 'inv', 'noid', 'lht', 'pad')
+
+
+def window_bound(tables, W0, od_slots, args, prune=True):
     """Work, bytes and bound of one service window from state ``W0``,
     counted from the plain version's walks on a copy: the state read
-    once and, for the lanes that change, written once, the rows read,
-    ``root_lohi``."""
+    once and, for the lanes that change, the fields the variant writes
+    written once, the rows read, ``root_lohi``."""
     W = clone_state(W0)
     work = {}
     mbvh_walk.walk_window_plain(
         tables.mbvh_rows, W, fused.SERVICE_EVERY, int(tables.mbvh_depth),
         bool(tables.mbvh_instanced), tmbvh.tquant_scale(tables), od_slots,
-        *args, work=work)
+        *args, work=work, prune=prune)
     n = W0['act'].shape[0]
     sbytes = state_bytes(W0)
+    wbytes = state_bytes({k: v for k, v in W0.items()
+                          if od_slots or k not in K5_READ_ONLY})
     changed = int(work['changed'].sum()) if 'changed' in work else 0
     rows_read = int(work['visited'].sum()) if 'visited' in work else 0
     flops = work_flops(work, args[1], FLOPS_SEED_LOHI)
-    nbytes = sbytes + sbytes * changed // n \
+    nbytes = sbytes + wbytes * changed // n \
         + rows_read * ROW_BYTES + args[2].numel() * 4
     return dict(work, flops=flops, bytes=nbytes, rows_read=rows_read,
                 internal_rows=work.get('internal_rows', 0),
@@ -655,7 +741,7 @@ def window_bound(tables, W0, od_slots, args):
                 bound=bound(flops, nbytes))
 
 
-def time_window(tables, n, od_slots, reps=5):
+def time_window(tables, n, od_slots, reps=5, prune=True):
     """Device ms of one service window from a fresh seeded state: the
     kernel (mean of ``reps`` runs) and the plain version (one run), each
     after a warm-up run; and the window's bound."""
@@ -674,13 +760,165 @@ def time_window(tables, n, od_slots, reps=5):
             torch.cuda.synchronize()
             start.record()
             tmbvh.walk_window(tables, W, fused.SERVICE_EVERY, od_slots,
-                              *args, plain=plain)
+                              *args, plain=plain, prune=prune)
             stop.record()
             torch.cuda.synchronize()
             if r:
                 times.append(start.elapsed_time(stop))
         out.append(sum(times) / len(times))
-    return out + [window_bound(tables, W0, od_slots, args)]
+    return out + [window_bound(tables, W0, od_slots, args, prune)]
+
+
+@contextlib.contextmanager
+def kernel_ms(module, name):
+    """While active, every call of ``module.<name>`` is bracketed by two
+    CUDA events on the current stream; yields a function that returns
+    the summed device ms of the calls (it synchronizes)."""
+    fn = getattr(module, name)
+    events = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    def total():
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in events), len(events)
+
+    setattr(module, name, timed)
+    try:
+        yield total
+    finally:
+        setattr(module, name, fn)
+
+
+def counts():
+    """{counter name: launches} of every kernel counter."""
+    out = {'closest_hit': mbvh_walk.closest_hit_launches.launches}
+    out.update({str(k): c.launches
+                for k, c in mbvh_walk.walk_window_launches.items()})
+    return out
+
+
+def drive(gg, photons, label, kw, card, seed=1):
+    """One timed propagation of ``photons`` through ``GPUPhotons`` with
+    generator seed ``seed``, the launch counts set to 0 just before and
+    read just after.  Prints and returns the run's numbers."""
+    dev = gg.device
+    reset()
+    gp = gpu.GPUPhotons(photons, dev)
+    rng = gpu.get_rng_states(seed=seed, device=dev)
+    torch.cuda.synchronize()
+    with kernel_ms(mbvh_walk, 'closest_hit_cuda') as k2:
+        t0 = time.time()
+        gp.propagate(gg, rng, max_steps=100, **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        k2_ms, k2_calls = k2()
+    flags = gp.state['flags']
+    terminal = float(((flags & TERMINAL) != 0).float().mean())
+    order = bool(torch.equal(gp.state['index'],
+                             torch.arange(len(photons), device=dev)))
+    run = dict(label=label, seed=seed, photons_per_s=len(photons) / secs,
+               terminal=terminal, launches={k: v for k, v in counts().items()
+                                            if v})
+    if gp.last_stats is not None:
+        st = [int(x) for x in gp.last_stats]
+        run.update(passes=st[0], photon_steps=st[1], lane_iterations=st[2],
+                   active_lane_iterations=st[3],
+                   active_share=st[3] / max(st[2], 1))
+        how = ('%d service passes, %d photon-steps, %d lane-iterations, '
+               'active share %.4f' % (st[0], st[1], st[2],
+                                      run['active_share']))
+    else:
+        run.update(steps=gp.last_steps, k2_ms=k2_ms, k2_launches=k2_calls,
+                   k2_ms_per_step=k2_ms / max(k2_calls, 1))
+        how = ('%d steps, K2 %.3f ms in %d launches (%.4f ms a step)'
+               % (gp.last_steps, k2_ms, k2_calls, run['k2_ms_per_step']))
+    print('photons propagated/s, full demo, %d isotropic 400 nm photons, '
+          'max_steps=100, %s: %.0f (%s); %s; launches %s; terminal %.5f'
+          % (len(photons), label, run['photons_per_s'], card, how,
+             run['launches'], terminal), flush=True)
+    check(terminal >= 0.99, '%s: only %.4f of photons ended terminal'
+          % (label, terminal))
+    check(order, '%s: photons not in upload order' % label)
+    return run
+
+
+def driver_phase(gg, card):
+    """Phase 6's propagations of NPHOTONS photons on the full demo: drain
+    compaction on and off, and the step loop with and without Morton
+    sorting, each pair alternated (one warm-up, then ROUNDS timed runs a
+    side, round r with generator seed r + 1 on both sides: the pool-dry
+    tail, and with it the passes, follows the slowest photon of a
+    draw); then one run of each other driver mode at seed 1.  Every run
+    >= 0.99 terminal, in upload order.  Returns (window launches by
+    walk_window_launches key, closest-hit launches)."""
+    photons = benchmark._isotropic_photons(NPHOTONS)
+    launches = {k: 0 for k in mbvh_walk.walk_window_launches}
+    ch = [0]
+
+    def add(run):
+        for k, c in mbvh_walk.walk_window_launches.items():
+            launches[k] += c.launches
+        ch[0] += mbvh_walk.closest_hit_launches.launches
+        return run
+
+    line = {'phase': 6, 'photons': NPHOTONS, 'card': card, 'pairs': {},
+            'singles': []}
+    pairs = (('drain', (('drain compaction (8, 64)', dict(
+                  od_slots=1, collect_stats=True)),
+              ('no drain compaction', dict(
+                  od_slots=1, collect_stats=True, drain_shrink=())))),
+             ('sort', (('step loop, sort_every 0', dict(driver='steps')),
+                       ('step loop, sort_every 1', dict(
+                           driver='steps', sort_every=1)))))
+    for pair, sides in pairs:
+        runs = {label: [] for label, _ in sides}
+        for label, kw in sides:
+            add(drive(gg, photons, label + ' (warm-up)', kw, card, seed=0))
+        for r in range(ROUNDS):
+            for label, kw in sides:
+                runs[label].append(add(drive(gg, photons, label, kw, card,
+                                             seed=r + 1)))
+        line['pairs'][pair] = runs
+        summary = {label: float(np.mean([r['photons_per_s'] for r in rs]))
+                   for label, rs in runs.items()}
+        summary.update({label + ', passes or steps': [
+            r.get('passes', r.get('steps')) for r in rs]
+            for label, rs in runs.items()})
+        if pair == 'sort':
+            summary.update({label + ', K2 ms a step': float(np.mean(
+                [r['k2_ms_per_step'] for r in rs]))
+                for label, rs in runs.items()})
+        print('phase 6, %s, alternated, means of %d: %s (%s)'
+              % (pair, ROUNDS, json.dumps(summary), card), flush=True)
+    for label, kw in (
+            ('on-deck od_slots=2', dict(od_slots=2, collect_stats=True)),
+            ('no on-deck (K5)', dict(ondeck=False, collect_stats=True)),
+            ("prune='off' (K6 on K3)", dict(prune='off',
+                                            collect_stats=True)),
+            ("prune='off', od_slots=2 (K6 on K4)", dict(
+                prune='off', od_slots=2, collect_stats=True)),
+            ("prune='off', no on-deck (K6 on K5)", dict(
+                prune='off', ondeck=False, collect_stats=True)),
+            ('service_frac=0.25 (K5, one iteration a launch)', dict(
+                service_frac=0.25, collect_stats=True)),
+            ('chains=3', dict(chains=3, collect_stats=True)),
+            ("driver='compacting'", dict(driver='compacting'))):
+        line['singles'].append(add(drive(gg, photons, label, kw, card)))
+    print(json.dumps(line), flush=True)
+    for key in WINDOW_KEYS:
+        check(launches[key] > 0, 'phase 6 never launched the window '
+              'kernel %s' % variant(*key_parts(key)))
+    check(ch[0] > 0, 'the step loop never launched the walker kernel')
+    return launches, ch[0]
+
 
 
 def full_detector(dev):
@@ -1225,19 +1463,32 @@ def sno_phase(dev, card):
                                            plain_ms3, card), flush=True)
     report_bound('window K3, SNO-like flat, %d lanes x %d iterations'
                  % (fused.DEFAULT_WIDTH, fused.SERVICE_EVERY), b3, ms3)
+    # flat K5 (no on-deck slots) the same way
+    err5 = compare_window(g, fused.DEFAULT_WIDTH, 0, 5, 'SNO-like flat')
+    ms5, plain_ms5, b5 = time_window(g, fused.DEFAULT_WIDTH, 0)
+    print('window SNO-like flat (K5), %d lanes, %d iterations: kernel '
+          '%.3f ms, plain %.3f ms (%s)' % (fused.DEFAULT_WIDTH,
+                                           fused.SERVICE_EVERY, ms5,
+                                           plain_ms5, card), flush=True)
+    report_bound('window K5, SNO-like flat, %d lanes x %d iterations'
+                 % (fused.DEFAULT_WIDTH, fused.SERVICE_EVERY), b5, ms5)
 
-    # both drivers, each with the counts set to 0 just before
-    k3_launches = 0
+    # both drivers and the driver without on-deck slots, each with the
+    # counts set to 0 just before
+    k3_launches = k5_launches = 0
     line = {'phase': 15, 'detector': 'SNO-like GDML', 'pmts': SNO_NPMT,
             'triangles': ntri, 'mbvh_rows': rows,
             'mbvh_mb': g.mbvh_rows.numel() * 4 / 1e6,
             'host_seconds': host_s, 'peak_rss_gb': peak_rss_gb(),
             'card': card}
-    for label, kw in (('on-deck', dict(od_slots=1)),
-                      ('step loop', dict(driver='steps'))):
+    for label, number, key, kw in (
+            ('on-deck', 3, 'ondeck', dict(od_slots=1)),
+            ('step loop', 3, 'steps', dict(driver='steps')),
+            ('no on-deck (K5)', 1, 'no_ondeck', dict(ondeck=False))):
         reset()
-        rates, gp = benchmark.propagate(gg, number=3, nphotons=NPHOTONS,
-                                        max_steps=100, **kw)
+        rates, gp = benchmark.propagate(gg, number=number,
+                                        nphotons=NPHOTONS, max_steps=100,
+                                        **kw)
         flags = gp.state['flags']
         terminal = float(((flags & TERMINAL) != 0).float().mean())
         detected = (flags & i32(host.event.SURFACE_DETECT)) != 0
@@ -1250,15 +1501,19 @@ def sno_phase(dev, card):
         check(det_frac > 0, 'SNO-like %s: nothing detected' % label)
         check(bool(((chan >= 0) & (chan < SNO_NPMT)).all()),
               'SNO-like %s: a detected photon outside the channels' % label)
-        if 'od_slots' in kw:
+        if key == 'ondeck':
             launches = mbvh_walk.walk_window_launches[1].launches
             k3_launches += launches
             check(launches > 0, 'the on-deck driver never launched K3')
+        elif key == 'no_ondeck':
+            launches = mbvh_walk.walk_window_launches[0].launches
+            k5_launches += launches
+            check(launches > 0, 'the driver without on-deck slots never '
+                  'launched K5')
         else:
             launches = mbvh_walk.closest_hit_launches.launches
             k1_launches += launches
             check(launches > 0, 'the step loop never launched K1')
-        key = 'ondeck' if 'od_slots' in kw else 'steps'
         line.update({key + '_photons_per_s': [float(r) for r in rates],
                      key + '_terminal': terminal,
                      key + '_det_frac': det_frac,
@@ -1267,10 +1522,10 @@ def sno_phase(dev, card):
         print('photons propagated/s, SNO-like, %d isotropic 400 nm photons '
               'from the center, max_steps=100, %s: %s; mean %.0f (%s); '
               'terminal %.5f, detected %.5f on %d channels; %d kernel '
-              'launches in 4 propagations'
+              'launches in %d propagations'
               % (NPHOTONS, label, ['%.0f' % r for r in rates], rates.mean(),
-                 card, terminal, det_frac, chan.unique().numel(), launches),
-              flush=True)
+                 card, terminal, det_frac, chan.unique().numel(), launches,
+                 number + 1), flush=True)
     print(json.dumps(line), flush=True)
     del gg, g, args
     torch.cuda.empty_cache()
@@ -1302,7 +1557,8 @@ def sno_phase(dev, card):
         cli_sim.main(['sno_small', '-o', root_out, '-n', '1', '-s', '15'])
         print('.root output: %s written' % root_out, flush=True)
     return {'k1': (ms1, plain_ms1, b1, k1_launches, err1),
-            'k3': (ms3, plain_ms3, b3, k3_launches, err3)}
+            'k3': (ms3, plain_ms3, b3, k3_launches, err3),
+            'k5': (ms5, plain_ms5, b5, k5_launches, err5)}
 
 
 def shard_phase(gg, card, golden_det_frac):
@@ -1455,6 +1711,60 @@ def shard_phase(gg, card, golden_det_frac):
     return launches
 
 
+def timing(ms_, plain, b):
+    return {'ms': ms_, 'plain_ms': plain, 'bound_ms': b['bound'][0],
+            'bound_by': b['bound'][1], 'library_ms': None,
+            'share': b['bound'][0] / ms_}
+
+
+def kernel_entries(closest, werr, wms, w_launches, sno):
+    """The ``kernels`` line's entries: the closest-hit kernel (K2, with
+    ``closest`` = (launches, max error, ms, plain ms, bound)), every
+    window variant on the full demo (errors, times and launches keyed by
+    ``walk_window_launches`` key) and the flat kernels of phase 15
+    (``sno``).  Fails if a kernel was never launched on its path."""
+    launches, err, ms, plain_ms, bound_ = closest
+    check(launches > 0, 'the closest-hit kernel was never launched')
+    entries = [dict({
+        'name': 'mbvh_closest_hit', 'route': 'cuda',
+        'source': 'chroma_tpu_torch/csrc/mbvh_walk.cu',
+        'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
+        'launches': launches, 'max_abs_err': err},
+        **timing(ms, plain_ms, bound_))]
+    for key in WINDOW_KEYS:
+        od_slots, prune = key_parts(key)
+        check(w_launches[key] > 0, '%s was never launched'
+              % variant(od_slots, prune))
+        entries.append(dict({
+            'name': 'mbvh_walk_window_od%d%s'
+                    % (od_slots, '' if prune else '_noprune'),
+            'variant': '%s, walk_window_kernel<true, %d>, prune %s'
+                       % (variant(od_slots, prune), od_slots,
+                          'on' if prune else 'off'),
+            'route': 'cuda',
+            'source': 'chroma_tpu_torch/csrc/mbvh_walk_window.cu',
+            'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
+            'launches': w_launches[key],
+            'max_abs_err': werr[key]}, **timing(*wms[key])))
+    for key, name, what in (
+            ('k1', 'mbvh_closest_hit_flat', 'K1, closest_hit_kernel<false>'),
+            ('k3', 'mbvh_walk_window_od1_flat',
+             'K3 flat, walk_window_kernel<false, 1>'),
+            ('k5', 'mbvh_walk_window_od0_flat',
+             'K5 flat, walk_window_kernel<false, 0>')):
+        ms_, plain, b, n, e = sno[key]
+        check(n > 0, 'phase 15 never launched %s' % what)
+        source = 'mbvh_walk.cu' if key == 'k1' else 'mbvh_walk_window.cu'
+        entries.append(dict({
+            'name': name, 'variant': what,
+            'phase': '15, SNO-like flat table',
+            'route': 'cuda', 'source': 'chroma_tpu_torch/csrc/' + source,
+            'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
+            'launches': n, 'max_abs_err': e},
+            **timing(ms_, plain, b)))
+    return entries
+
+
 def main():
     t_start = time.time()
     # ---- 1. device ----------------------------------------------------
@@ -1478,7 +1788,7 @@ def main():
     print('build: %s in %.1f s' % (os.path.relpath(path, ROOT),
                                    time.time() - t0))
     ptxas = ptxas_summary(log)
-    check(len(ptxas) == 6, 'ptxas reported %d of 6 kernel instantiations'
+    check(len(ptxas) == 8, 'ptxas reported %d of 8 kernel instantiations'
           % len(ptxas))
     for name, what in sorted(ptxas.items()):
         print('  ptxas: %s: %s' % (name, what))
@@ -1554,8 +1864,12 @@ def main():
     report_bound('closest hit K2, full demo, %d center rays' % nrays,
                  ch_bound, ms)
 
-    # K1 at a main-path-sized shape: demo.tiny packed flat
-    tiny_flat = pack_geometry(tiny, dev, instancing=False)
+    # K1 at a main-path-sized shape: demo.tiny packed flat, with the
+    # escape-rope walker's tables (a BVH built for them; tiny keeps none)
+    create_geometry_from_obj(tiny, update_bvh_cache=False)
+    tiny_flat = pack_geometry(tiny, dev, instancing=False,
+                              include_legacy_bvh=True)
+    tiny.bvh = None
     hits, e, args1 = compare_walk(tiny_flat, pos, dirs, dev)
     err = max(err, e)
     ms1 = cuda_ms(lambda: mbvh_walk.closest_hit_cuda(*args1), 5)
@@ -1566,39 +1880,52 @@ def main():
              hits, ms1, plain_ms1, card), flush=True)
     report_bound('closest hit K1, demo.tiny flat, %d center rays' % nrays,
                  closest_hit_bound(args1), ms1)
+    escape_walker_check(tiny_flat, args1, ms1, card)
 
-    # ---- 4. the on-deck window kernel against its plain version -------
-    werr = {1: 0.0, 2: 0.0}
-    cases = [('flat sphere', sphere, 256, 1), ('flat sphere', sphere, 256, 2),
-             ('demo.tiny', tiny_geom, 256, 1), ('demo.tiny', tiny_geom, 256, 2),
-             ('tie scene, flat', ties['flat'], 256, 1),
-             ('tie scene, instanced', ties['instanced'], 256, 2)]
-    cases += [('%s, ragged' % name, tables, n, od_slots)
+    # ---- 4. the window kernels against their plain version ----------
+    # K3, K4 and K5 (od_slots 1, 2, 0), each pruning and not (K6)
+    werr = {k: 0.0 for k in WINDOW_KEYS}
+    cases = [('flat sphere', sphere, 256, od, True) for od in (1, 2, 0)]
+    cases += [('demo.tiny', tiny_geom, 256, od, True) for od in (1, 2, 0)]
+    cases += [('tie scene, flat', ties['flat'], 256, 1, True),
+              ('tie scene, instanced', ties['instanced'], 256, 2, True),
+              ('tie scene, flat', ties['flat'], 256, 0, True),
+              ('tie scene, instanced', ties['instanced'], 256, 0, True)]
+    cases += [('%s, ragged' % name, tables, n, od, True)
               for name, tables in (('flat sphere', sphere),
                                    ('demo.tiny', tiny_geom))
-              for n in (1, 31, 33, 129, 1001) for od_slots in (1, 2)]
-    cases += [('full demo', gg.geom, fused.DEFAULT_WIDTH, 1),
-              ('full demo', gg.geom, fused.DEFAULT_WIDTH, 2)]
-    for what, tables, n, od_slots in cases:
-        werr[od_slots] = max(werr[od_slots], compare_window(
-            tables, n, od_slots, n + od_slots, what))
+              for n in GROUP_EDGES for od in (1, 2, 0)]
+    cases += [('%s' % name, tables, 256, od, False)
+              for name, tables in (('flat sphere', sphere),
+                                   ('demo.tiny', tiny_geom))
+              for od in (1, 2, 0)]
+    cases += [('flat sphere, ragged', sphere, n, od, False)
+              for n in (1, 33, 1001) for od in (1, 2, 0)]
+    cases += [('full demo', gg.geom, fused.DEFAULT_WIDTH, od, prune)
+              for prune in (True, False) for od in (1, 2, 0)]
+    for what, tables, n, od_slots, prune in cases:
+        key = mbvh_walk.window_key(od_slots, prune)
+        werr[key] = max(werr[key], compare_window(
+            tables, n, od_slots, n + od_slots, what, prune=prune))
     for what, tables in (('tie scene, flat', ties['flat']),
                          ('tie scene, instanced', ties['instanced'])):
-        for od_slots in (1, 2):
+        for od_slots in (1, 2, 0):
             werr[od_slots] = max(werr[od_slots], compare_window(
                 tables, 6, od_slots, 0, what + ', axis-parallel rays',
                 state=axis_state(tables, od_slots, dev)))
     wms = {}
-    for od_slots in (1, 2):
-        wms[od_slots] = time_window(gg.geom, fused.DEFAULT_WIDTH, od_slots)
-        print('window full demo, od_slots %d, %d lanes, %d iterations: '
-              'kernel %.3f ms, plain %.3f ms (%s)'
-              % (od_slots, fused.DEFAULT_WIDTH, fused.SERVICE_EVERY,
-                 wms[od_slots][0], wms[od_slots][1], card), flush=True)
-        report_bound('window K%d, full demo, %d lanes x %d iterations'
-                     % (2 + od_slots, fused.DEFAULT_WIDTH,
-                        fused.SERVICE_EVERY), wms[od_slots][2],
-                     wms[od_slots][0])
+    for key in WINDOW_KEYS:
+        od_slots, prune = key_parts(key)
+        wms[key] = time_window(gg.geom, fused.DEFAULT_WIDTH, od_slots,
+                               prune=prune)
+        print('window full demo, %s, od_slots %d, %d lanes, %d '
+              'iterations: kernel %.3f ms, plain %.3f ms (%s)'
+              % (variant(od_slots, prune), od_slots, fused.DEFAULT_WIDTH,
+                 fused.SERVICE_EVERY, wms[key][0], wms[key][1], card),
+              flush=True)
+        report_bound('window %s, full demo, %d lanes x %d iterations'
+                     % (variant(od_slots, prune), fused.DEFAULT_WIDTH,
+                        fused.SERVICE_EVERY), wms[key][2], wms[key][0])
 
     # ---- 5. the whole on-deck driver, kernel against plain walker -------
     np.random.seed(4)
@@ -1641,45 +1968,9 @@ def main():
           '(%s); %d kernel launches in %d intersect calls'
           % (nrays, ['%.0f' % r for r in ray_rates], ray_rates.mean(), card,
              ch_launches, len(ray_rates) + 1))
-    nphotons = NPHOTONS
-    w_launches = {}
-    for label, number, kw in (('on-deck od_slots=1', 3, dict(od_slots=1)),
-                              ('on-deck od_slots=2', 1, dict(od_slots=2)),
-                              ('step loop', 3, dict(driver='steps'))):
-        reset()
-        rates, gp = benchmark.propagate(gg, number=number,
-                                        nphotons=nphotons, max_steps=100,
-                                        **kw)
-        flags = gp.state['flags']
-        terminal = float(((flags & TERMINAL) != 0).float().mean())
-        if 'od_slots' in kw:
-            od_slots = kw['od_slots']
-            w_launches[od_slots] = \
-                mbvh_walk.walk_window_launches[od_slots].launches
-            check(w_launches[od_slots] > 0, 'the %s driver never launched '
-                  'the window kernel' % label)
-            st = gp.last_stats
-            w = min(fused.DEFAULT_WIDTH, nphotons)
-            how = ('%d service passes, %d photon-steps, %d lane-iterations'
-                   ' (holding share %.4f, photon-steps per lane-iteration '
-                   '%.4f); %d window launches in %d propagations'
-                   % (st[0], st[1], st[2],
-                      st[2] / (st[0] * w * fused.SERVICE_EVERY),
-                      st[1] / st[2], w_launches[od_slots], number + 1))
-        else:
-            ch_launches += mbvh_walk.closest_hit_launches.launches
-            check(mbvh_walk.closest_hit_launches.launches > 0,
-                  'the step loop never launched the walker kernel')
-            how = '%d steps; %d closest-hit launches in %d propagations' \
-                % (gp.last_steps, mbvh_walk.closest_hit_launches.launches,
-                   number + 1)
-        print('photons propagated/s, full demo, %d isotropic 400 nm '
-              'photons, max_steps=100, %s: %s; mean %.0f (%s); %s; '
-              'terminal %.5f' % (nphotons, label,
-                                 ['%.0f' % r for r in rates], rates.mean(),
-                                 card, how, terminal), flush=True)
-        check(terminal >= 0.99, '%s: only %.4f of photons ended terminal'
-              % (label, terminal))
+    launches, k_launches = driver_phase(gg, card)
+    ch_launches += k_launches
+    w_launches = dict(launches)
 
     # ---- 7. full-demo physics against its golden ----------------------
     golden = np.load(os.path.join(GOLDEN_DIR, 'demo_full_pdf.npz'))
@@ -1886,37 +2177,8 @@ def main():
 
     print('nvidia-smi name, power.limit: %s' % card)
 
-    def timing(ms_, plain, b):
-        return {'ms': ms_, 'plain_ms': plain, 'bound_ms': b['bound'][0],
-                'bound_by': b['bound'][1], 'library_ms': None,
-                'share': b['bound'][0] / ms_}
-
-    entries = [dict({
-        'name': 'mbvh_closest_hit', 'route': 'cuda',
-        'source': 'chroma_tpu_torch/csrc/mbvh_walk.cu',
-        'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
-        'launches': ch_launches, 'max_abs_err': err},
-        **timing(ms, plain_ms, ch_bound))]
-    for od_slots in (1, 2):
-        entries.append(dict({
-            'name': 'mbvh_walk_window_od%d' % od_slots, 'route': 'cuda',
-            'source': 'chroma_tpu_torch/csrc/mbvh_walk_window.cu',
-            'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
-            'launches': w_launches[od_slots],
-            'max_abs_err': werr[od_slots]}, **timing(*wms[od_slots])))
-    for key, name, variant in (
-            ('k1', 'mbvh_closest_hit_flat', 'K1, closest_hit_kernel<false>'),
-            ('k3', 'mbvh_walk_window_od1_flat',
-             'K3 flat, walk_window_kernel<false, 1>')):
-        ms_, plain, b, launches, e = sno[key]
-        source = 'mbvh_walk.cu' if key == 'k1' else 'mbvh_walk_window.cu'
-        entries.append(dict({
-            'name': name, 'variant': variant,
-            'phase': '15, SNO-like flat table',
-            'route': 'cuda', 'source': 'chroma_tpu_torch/csrc/' + source,
-            'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
-            'launches': launches, 'max_abs_err': e},
-            **timing(ms_, plain, b)))
+    entries = kernel_entries((ch_launches, err, ms, plain_ms, ch_bound),
+                             werr, wms, w_launches, sno)
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -139,5 +139,6 @@ def library():
         p, p, i, i,                  # rows, state pointers, nkeys, n
         f, i, i, i, i,               # sq, depth, instanced, od_slots, iters
         i, i, p,                     # rbase, rcount, root_lohi
+        i, p,                        # prune, nactive counter (or null)
         p]                           # stream
     return lib

@@ -100,7 +100,7 @@ closest_hit_kernel(const uint32_t* __restrict__ rows,
     for (int it = 0; it < max_iters && act; ++it) {
         process_row<INSTANCED>(rows + (size_t)ptr * ROW_WIDTH, ray, lht, sq,
                                depth, lvl, hit, inst, pend);
-        act = pop(pend, nslots, hit.min_dist, sq, &lvl, &ptr);
+        act = pop(pend, nslots, hit.min_dist, sq, true, &lvl, &ptr);
     }
 
     const int t = lane_id();

@@ -7,7 +7,9 @@
 //   mbvh_walk_window.cu  walk_window_kernel<INSTANCED, OD_SLOTS>:
 //                        one warp runs n_iters iterations of a lane whose
 //                        state lives in device memory across launches,
-//                        with the on-deck drain-restart (K3, K4).
+//                        with the on-deck drain-restart (K3, K4) or
+//                        without it (K5, OD_SLOTS = 0), pruning or not
+//                        (K6, a run-time flag).
 //
 // Both replace the TPU kernel body `_make_kernel` of
 // chroma_tpu/ops/mbvh_pallas.py, whose semantics they keep step for
@@ -502,12 +504,15 @@ __device__ __forceinline__ void process_row(const uint32_t* row,
 
 // Pop the nearest pending child of the deepest live level.  Sets *lvl
 // (-1 when nothing is live) and *ptr (0 then); returns whether a child
-// was popped.
+// was popped.  With `prune` a level is live while its nearest code can
+// beat floor(min_dist*sq)+1; without it (the TPU kernel's
+// do_prune=False, mbvh_pallas.py:356-357) while any child is pending:
+// the threshold is SENT - 1, above every valid code.
 __device__ __forceinline__ bool pop(Pending& pend, int nslots,
-                                    float min_dist, float sq, int* lvl,
-                                    uint32_t* ptr) {
-    const uint32_t thresh =
-        (uint32_t)clip_code(floorf(min_dist * sq) + 1.0f);
+                                    float min_dist, float sq, bool prune,
+                                    int* lvl, uint32_t* ptr) {
+    const uint32_t thresh = prune
+        ? (uint32_t)clip_code(floorf(min_dist * sq) + 1.0f) : SENT - 1u;
     uint32_t live = 0;
 #pragma unroll
     for (int s = 0; s < MAX_SLOTS; ++s) {

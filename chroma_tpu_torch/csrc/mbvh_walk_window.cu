@@ -1,16 +1,22 @@
-// On-deck walker window: n_iters MBVH walk iterations per lane, with
-// the drain-restart cascade, one warp per lane.
+// Walker window: n_iters MBVH walk iterations per lane, one warp per
+// lane, with or without the on-deck drain-restart cascade.
 //
-// Replaces the on-deck variants of the TPU walker kernel of
-// chroma_tpu/ops/mbvh_pallas.py (`_make_kernel(ondeck=True)`, launched
-// per iteration by `walk_iter`, :557-654): K3 (od_slots = 1, :405-513)
-// and K4 (od_slots = 2, :411-433 and :509-512).  The TPU driver calls
+// Replaces the window variants of the TPU walker kernel of
+// chroma_tpu/ops/mbvh_pallas.py (`_make_kernel`, launched per iteration
+// by `walk_iter`, :557-654): K3 (ondeck, od_slots = 1, :405-513), K4
+// (od_slots = 2, :411-433 and :509-512), K5 (ondeck=False: the fused
+// driver's window when the on-deck path is off or `service_frac` is
+// set; a drained walk idles until the service pass reseeds it) and K6
+// (do_prune=False on any of them, :352-357: a level stays live while
+// any child is pending).  OD_SLOTS = 0 is K5; K6 is the run-time flag
+// `prune`, which changes one select in `pop` (a template flag would
+// double the six builds for it).  The TPU driver calls
 // the kernel once per iteration with the row gather outside it; here
 // one launch runs a whole service window of n_iters iterations and each
 // warp reads its own lane's rows.  What one iteration computes is
-// exactly `walk_iter(ondeck=True)`: the row popped last is processed and
-// the next child popped (mbvh_walk_core.cuh, which states the group
-// design), then, in the iteration a walk drains,
+// exactly `walk_iter`: the row popped last is processed and the next
+// child popped (mbvh_walk_core.cuh, which states the group design);
+// with on-deck slots (OD_SLOTS > 0), in the iteration a walk drains,
 //   * its results (distance, normal, triangle, material) are parked in
 //     `park` (pad bit 1), or with a second slot, when `park` is taken,
 //     in `park2` (pad bit 4);
@@ -48,16 +54,27 @@
 // GFLOP, so the bound is ~0.042 ms at 3.35 TB/s; the kernel runs at
 // about 6% of it (PERF.md), bound by latency and issue like the
 // closest-hit kernel.  A lane that has drained with no on-deck ray left
-// is a fixed point: its warp stops iterating and stores nothing.
+// is a fixed point: its warp stops iterating and stores nothing.  K5
+// reads the ray but never writes it (the TPU kernel's read-only `rays`);
+// its window walks 0.60x K3's lane-iterations (~131 MB, bound ~0.039
+// ms) and takes 0.57-0.62x K3's time; K6 walks 6-15% more.
 //
-// Builds: <INSTANCED, OD_SLOTS>, each holding MAX_SLOTS pending levels
-// as the closest-hit kernel.  Registers: capped at 64 by
+// Active lane-iterations (the JAX driver's `collect_stats`, stats[3]):
+// with `nactive` non-null, each warp counts the iterations after which
+// its walk is active (a restarted walk included) and adds the count to
+// *nactive with one atomicAdd at the end of the launch.
+//
+// Builds: <INSTANCED, OD_SLOTS>, OD_SLOTS 0, 1 or 2, each holding
+// MAX_SLOTS pending levels as the closest-hit kernel.  Registers: capped at 64 by
 // __launch_bounds__(BLOCK, MIN_BLOCKS), as the closest-hit kernel.
 // ptxas (sm_90a, CUDA 12.8; chip_smoke.py phase 2), stack frame and
-// spill stores / loads: <false, 1> 88 B, 120 B / 140 B; <false, 2> 88 B,
-// 100 B / 132 B; <true, 1> 152 B, 248 B / 284 B; <true, 2> 152 B, 232 B
-// / 304 B.  Spills of the cap: uncapped, the first warp-per-ray build
-// ran at 98-128 registers with 0-8 B of stack, and slower.
+// spill stores / loads: <false, 0> 64 B, 92 B / 100 B; <false, 1> 96 B,
+// 144 B / 156 B; <false, 2> 96 B, 124 B / 148 B; <true, 0> 136 B, 192 B
+// / 212 B; <true, 1> 160 B, 272 B / 304 B; <true, 2> 168 B, 252 B /
+// 312 B (the prune flag and the active count added 8-24 B of spills to
+// the on-deck builds).  Spills of the cap: uncapped, the first
+// warp-per-ray build ran at 98-128 registers with 0-8 B of stack, and
+// slower.
 #include "mbvh_walk_core.cuh"
 
 namespace {
@@ -112,7 +129,8 @@ template <bool INSTANCED, int OD_SLOTS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
                    float sq, int depth, int n_iters, uint32_t rbase,
-                   int rcount, const float* __restrict__ root_lohi) {
+                   int rcount, const float* __restrict__ root_lohi,
+                   bool prune, unsigned long long* __restrict__ nactive) {
     // one warp per lane: a warp past the ragged edge leaves whole
     const long long gi = group_index();
     if (gi >= n) return;
@@ -162,16 +180,17 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
         }
     }
     int32_t pad = L.s(PAD);
-    const bool od_valid = L.b(OD_VALID) != 0;
+    const bool od_valid = OD_SLOTS >= 1 && L.b(OD_VALID) != 0;
     const bool od2_valid = OD_SLOTS == 2 && L.b(OD2_VALID) != 0;
 
     bool changed = false;
+    unsigned long long nact = 0;
     for (int it = 0; it < n_iters; ++it) {
         const bool parked = (pad & 1) != 0;
         const bool parked2 = OD_SLOTS == 2 && (pad & 4) != 0;
         if (!act && lvl < 0) {
             // drained: nothing changes unless a swap is due
-            const bool due = (pad & 2) != 0
+            const bool due = OD_SLOTS >= 1 && (pad & 2) != 0
                 && ((!parked && od_valid)
                     || (OD_SLOTS == 2 && parked && !parked2 && od2_valid));
             if (!due) break;
@@ -182,7 +201,11 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
         if (act_in)
             process_row<INSTANCED>(rows + (size_t)ptr * ROW_WIDTH, ray, lht,
                                    sq, depth, lvl, hit, inst, pend);
-        act = pop(pend, nslots, hit.min_dist, sq, &lvl, &ptr);
+        act = pop(pend, nslots, hit.min_dist, sq, prune, &lvl, &ptr);
+        if (OD_SLOTS == 0) {
+            nact += act;
+            continue;
+        }
 
         // ---- drain-restart cascade ----
         const bool done = (pad & 2) != 0 || (act_in && !act);
@@ -221,7 +244,9 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
         }
         pad = ((parked || swap1) ? 1 : 0) | ((done && !swap) ? 2 : 0)
             | ((parked2 || swap2) ? 4 : 0);
+        nact += act;
     }
+    if (nactive && t == 0 && nact) atomicAdd(nactive, nact);
     if (!changed) return;
 
     // ---- store the lane: the codes by every thread, level slot s's base
@@ -236,14 +261,18 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
     if (t < 3) L.f(NRM, t) = hit.nrm;
     if (INSTANCED && t < 9) L.f(IROT, t) = inst.irot;
     if (t != 0) return;
+    if (OD_SLOTS >= 1) {
+        // only a swap changes the ray
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-        L.f(ORG, k) = ray.o[k];
-        L.f(DIR, k) = ray.d[k];
-        L.f(INV, k) = ray.inv[k];
-        L.f(NOID, k) = ray.noid[k];
+        for (int k = 0; k < 3; ++k) {
+            L.f(ORG, k) = ray.o[k];
+            L.f(DIR, k) = ray.d[k];
+            L.f(INV, k) = ray.inv[k];
+            L.f(NOID, k) = ray.noid[k];
+        }
+        L.s(LHT) = lht;
+        L.s(PAD) = pad;
     }
-    L.s(LHT) = lht;
     L.s(PTR) = (int32_t)ptr;
     L.b(ACT) = act ? 1 : 0;
     L.s(LVL) = lvl;
@@ -260,49 +289,75 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
             L.f(INOID, k) = inst.inoid[k];
         }
     }
-    L.s(PAD) = pad;
 }
 
+struct Args {
+    const uint32_t* rows;
+    State st;
+    int n;
+    float sq;
+    int depth, n_iters;
+    uint32_t rbase;
+    int rcount;
+    const float* root_lohi;
+    bool prune;
+    unsigned long long* nactive;
+};
+
 template <bool INSTANCED, int OD_SLOTS>
-void launch(const uint32_t* rows, const State& st, int n, float sq,
-            int depth, int n_iters, uint32_t rbase, int rcount,
-            const float* root_lohi, cudaStream_t stream) {
-    const long long threads = (long long)n * G;
+void launch(const Args& a, cudaStream_t stream) {
+    const long long threads = (long long)a.n * G;
     const int grid = (int)((threads + BLOCK - 1) / BLOCK);
     walk_window_kernel<INSTANCED, OD_SLOTS><<<grid, BLOCK, 0, stream>>>(
-        rows, st, n, sq, depth, n_iters, rbase, rcount, root_lohi);
+        a.rows, a.st, a.n, a.sq, a.depth, a.n_iters, a.rbase, a.rcount,
+        a.root_lohi, a.prune, a.nactive);
+}
+
+template <bool INSTANCED>
+void launch_slots(const Args& a, int od_slots, cudaStream_t stream) {
+    if (od_slots == 0)
+        launch<INSTANCED, 0>(a, stream);
+    else if (od_slots == 1)
+        launch<INSTANCED, 1>(a, stream);
+    else
+        launch<INSTANCED, 2>(a, stream);
 }
 
 }  // namespace
 
 // C entry point: `state` is a host array of NKEYS device pointers in
 // the order of enum Key (null where a field is absent: the instance
-// registers of a flat geometry, the second slot at od_slots = 1);
-// `rows` and `root_lohi` are device pointers, `stream` the CUDA stream
-// to launch on; the tree's depth at most MAX_SLOTS + 1.  Returns the
-// cudaError_t of the launch.
+// registers of a flat geometry, the on-deck slots past od_slots);
+// `rows`, `root_lohi` and `nactive` (null: no count; else one
+// unsigned 64-bit counter the launch adds to) are device pointers,
+// `stream` the CUDA stream to launch on; od_slots 0 (K5), 1 or 2; the
+// tree's depth at most MAX_SLOTS + 1.  Returns the cudaError_t of the
+// launch.
 extern "C" int mbvh_walk_window(const void* rows, void* const* state,
                                 int nkeys, int n, float sq, int depth,
                                 int instanced, int od_slots, int n_iters,
                                 int rbase, int rcount, const void* root_lohi,
-                                void* stream) {
+                                int prune, void* nactive, void* stream) {
     if (nkeys != NKEYS) return (int)cudaErrorInvalidValue;
     if (n <= 0 || n_iters <= 0) return (int)cudaSuccess;
     if (depth < 1 || depth - 1 > MAX_SLOTS) return (int)cudaErrorInvalidValue;
-    if (od_slots != 1 && od_slots != 2) return (int)cudaErrorInvalidValue;
-    State st;
-    for (int k = 0; k < NKEYS; ++k) st.p[k] = state[k];
-    const uint32_t* r = static_cast<const uint32_t*>(rows);
-    const float* lohi = static_cast<const float*>(root_lohi);
+    if (od_slots < 0 || od_slots > 2) return (int)cudaErrorInvalidValue;
+    Args a;
+    a.rows = static_cast<const uint32_t*>(rows);
+    for (int k = 0; k < NKEYS; ++k) a.st.p[k] = state[k];
+    a.n = n;
+    a.sq = sq;
+    a.depth = depth;
+    a.n_iters = n_iters;
+    a.rbase = (uint32_t)rbase;
+    a.rcount = rcount;
+    a.root_lohi = static_cast<const float*>(root_lohi);
+    a.prune = prune != 0;
+    a.nactive = static_cast<unsigned long long*>(nactive);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const uint32_t rb = (uint32_t)rbase;
-    if (instanced && od_slots == 2)
-        launch<true, 2>(r, st, n, sq, depth, n_iters, rb, rcount, lohi, s);
-    else if (instanced)
-        launch<true, 1>(r, st, n, sq, depth, n_iters, rb, rcount, lohi, s);
-    else if (od_slots == 2)
-        launch<false, 2>(r, st, n, sq, depth, n_iters, rb, rcount, lohi, s);
+    if (instanced)
+        launch_slots<true>(a, od_slots, s);
     else
-        launch<false, 1>(r, st, n, sq, depth, n_iters, rb, rcount, lohi, s);
+        launch_slots<false>(a, od_slots, s);
     return (int)cudaGetLastError();
 }

@@ -196,19 +196,27 @@ class GPUPhotons(object):
     def propagate(self, gpu_geometry, rng_states, max_steps=100,
                   use_weights=False, scatter_first=0, track=False,
                   driver='fused', width=None, service_every=None,
-                  od_slots=1, mesh=None):
+                  od_slots=1, mesh=None, ondeck=True, prune='on',
+                  service_frac=None, drain_shrink=fused_ops.DRAIN_SHRINK,
+                  chains=fused_ops.DEFAULT_CHAINS, collect_stats=False,
+                  sort_every=0):
         """Propagate every photon to termination or ``max_steps``
         (reference gpu/photon.py:192), drawing from the generator of
         ``rng_states``.  ``use_weights`` and ``scatter_first`` are
         ``ops/propagate.physics_update``'s.
 
         ``driver='fused'`` (the default, as in the JAX package) runs the
-        on-deck lane-pool driver ops/fused.propagate_fused with
-        ``width``, ``service_every`` and ``od_slots`` and keeps its
-        int32[4] stats [service passes, photon-steps, lane-iterations,
-        0] in ``last_stats``.  ``driver='steps'`` runs the step loop
-        ops/photon.propagate and keeps its step count in
-        ``last_steps``.
+        lane-pool driver ops/fused.propagate_fused with ``width``,
+        ``service_every``, ``od_slots``, ``ondeck``, ``prune``,
+        ``service_frac``, ``drain_shrink``, ``chains`` and
+        ``collect_stats`` (its docstring has their meaning) and keeps
+        its int32[4] stats [service passes, photon-steps,
+        lane-iterations, active lane-iterations] in ``last_stats``.
+        ``driver='steps'`` runs the step loop ops/photon.propagate, with
+        the batch in Morton order before every ``sort_every``-th step
+        when that is > 0; ``driver='compacting'`` the round loop
+        ops/photon.propagate_compacting.  Both keep their step count in
+        ``last_steps`` and give the photons back in upload order.
 
         ``track=True`` ignores ``driver``: one ``propagate_step`` over
         the whole batch per host step, and returns (step_photon_ids,
@@ -226,6 +234,11 @@ class GPUPhotons(object):
         The step loop has no sharded form (``driver='steps'`` raises).
         """
         geom = gpu_geometry.geom
+        fused_kw = dict(
+            width=width, od_slots=od_slots, ondeck=ondeck, prune=prune,
+            service_every=service_every or fused_ops.SERVICE_EVERY,
+            service_frac=service_frac, drain_shrink=drain_shrink,
+            chains=chains, collect_stats=collect_stats)
         if mesh is not None and mesh.size > 1 and not track:
             if driver != 'fused':
                 raise ValueError("a mesh of %d devices propagates with "
@@ -236,9 +249,7 @@ class GPUPhotons(object):
             state, stats = parallel.propagate_sharded(
                 state, gpu_geometry, rng_states.next(), mesh,
                 max_steps=max_steps, use_weights=use_weights,
-                scatter_first=scatter_first, od_slots=od_slots,
-                width=width,
-                service_every=service_every or fused_ops.SERVICE_EVERY)
+                scatter_first=scatter_first, **fused_kw)
             state = photon_ops.unsort_photons(state)
             self.state = {k: v[:n] for k, v in state.items()}
             self.last_stats = stats.cpu().numpy()
@@ -251,22 +262,33 @@ class GPUPhotons(object):
             self.state, stats = fused_ops.propagate_fused(
                 self.state, geom, fused_ops.uniform_draws(
                     rng_states.generator),
-                max_steps=max_steps, width=width,
-                service_every=service_every or fused_ops.SERVICE_EVERY,
-                od_slots=od_slots, scatter_first=scatter_first,
-                use_weights=use_weights)
+                max_steps=max_steps, scatter_first=scatter_first,
+                use_weights=use_weights, **fused_kw)
             self.last_stats = stats.cpu().numpy()
             self.last_steps = None
-        elif driver == 'steps':
+        elif driver in ('steps', 'compacting'):
+            # a photon reads the draw row of its index: 0..n-1 here, the
+            # caller's index put back after
+            caller_index = self.state['index']
+            state = dict(self.state, index=torch.arange(
+                len(self), device=caller_index.device))
             draws = photon_ops.uniform_draws(rng_states.generator,
                                              len(self))
-            self.state, self.last_steps = photon_ops.propagate(
-                self.state, geom, draws, max_steps=max_steps,
-                scatter_first=scatter_first, use_weights=use_weights)
-            self.last_stats = None
+            kw = dict(max_steps=max_steps, scatter_first=scatter_first,
+                      use_weights=use_weights)
+            if driver == 'steps':
+                state, steps = photon_ops.propagate(
+                    state, geom, draws, sort_every=sort_every, **kw)
+                if sort_every:
+                    state = photon_ops.unsort_photons(state)
+            else:
+                state, steps = photon_ops.propagate_compacting(
+                    state, geom, draws, **kw)
+            self.state = dict(state, index=caller_index)
+            self.last_steps, self.last_stats = steps, None
         else:
-            raise ValueError("driver must be 'fused' or 'steps', got %r"
-                             % (driver,))
+            raise ValueError("driver must be 'fused', 'steps' or "
+                             "'compacting', got %r" % (driver,))
 
     def _propagate_tracking(self, geom, rng_states, max_steps,
                             scatter_first, use_weights):

@@ -7,8 +7,10 @@ uint32 tables (material codes, colors, MBVH rows) are held as int32
 tensors with the same bits, because torch has no unsigned right shift
 on the CPU: every consumer masks after each shift.
 
-Left out: the legacy escape-rope walker tables (``nodes``, ``escape``,
-``tri_vertices``), which only the JAX package's validation walker reads.
+The escape-rope walker's tables (``nodes``, ``escape`` from
+``compute_escape_pointers``, ``tri_vertices``; ops/mesh.py) are packed
+for meshes that carry a BVH of at most ``LEGACY_WALKER_MAX_TRIANGLES``
+triangles, else one-row placeholders, as in the JAX package.
 """
 import dataclasses
 import hashlib
@@ -17,6 +19,8 @@ import os
 import numpy as np
 import torch
 
+from chroma_tpu_torch.bvh.build import _intra_run
+from chroma_tpu_torch.bvh.bvh import from_uint4
 from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.geometry import standard_wavelengths
 
@@ -26,7 +30,18 @@ _UGRID = np.linspace(0.0, 1.0, N_ICDF).astype(np.float32)
 INSTANCING_MIN_GAIN = 100_000       # duplicated triangles worth a TLAS
 
 # JAX-package fields held as int32 here but stored as uint32 there
-U32_FIELDS = ('material_codes', 'colors', 'mbvh_rows')
+U32_FIELDS = ('material_codes', 'colors', 'mbvh_rows', 'nodes', 'escape')
+# geometries beyond this triangle count ship only the MBVH: the
+# escape-rope walker's tables would cost ~65 B a triangle and serve
+# only as a second walker on small meshes
+LEGACY_WALKER_MAX_TRIANGLES = 2_000_000
+ESCAPE_SENTINEL = np.uint32(0xFFFFFFFF)
+# the escape-rope walker's tables when they are not packed
+LEGACY_PLACEHOLDERS = {
+    'nodes': np.zeros((1, 4), np.uint32),
+    'escape': np.zeros(1, np.uint32),
+    'tri_vertices': np.zeros((1, 3, 3), np.float32),
+}
 
 
 def _static(default):
@@ -39,9 +54,12 @@ class GeometryTables:
     capability flags (same names as the JAX package's GeometryTables)."""
     vertices: torch.Tensor            # (V,3) f32
     triangles: torch.Tensor           # (T,3) i32
+    tri_vertices: torch.Tensor        # (T,3,3) f32, escape-rope walker
     material_codes: torch.Tensor      # (T,)  i32 (u32 bits)
     colors: torch.Tensor              # (T,)  i32 (u32 bits)
     solid_id_map: torch.Tensor        # (T,)  i32
+    nodes: torch.Tensor               # (N,4) i32 (u32 bits), BVH nodes
+    escape: torch.Tensor              # (N,)  i32 (u32 bits), ropes
     world_origin: torch.Tensor        # (3,)  f32 (MBVH world box)
     world_scale: torch.Tensor         # ()    f32
     legacy_world_origin: torch.Tensor  # (3,) f32
@@ -225,9 +243,64 @@ def _uniform_step(grid, what):
     return step
 
 
+def compute_escape_pointers(nodes_arr):
+    """Escape ("rope") pointer of every BVH node, uint32: the node a
+    depth-first walk goes to when it skips or finishes node i (the next
+    sibling, or the nearest ancestor's next sibling, or
+    ``ESCAPE_SENTINEL`` at the end).  Children of a node are contiguous,
+    so the pointers follow from one vectorized sweep a tree level: each
+    round sets the children of the parents whose own pointer is known.
+    ``nodes_arr`` (N, 4) uint32, the child count in the top 4 bits of
+    word 3 and the first child in the low 28."""
+    n = len(nodes_arr)
+    w = nodes_arr[:, 3]
+    nchild = (w >> np.uint32(28)).astype(np.int64)
+    first_child = (w & np.uint32(0x0FFFFFFF)).astype(np.int64)
+    escape = np.full(n, ESCAPE_SENTINEL, dtype=np.uint32)
+    known = np.zeros(n, dtype=bool)
+    known[0] = True
+    done = np.zeros(n, dtype=bool)
+    internal = nchild > 0
+    for _ in range(64):
+        ready = np.flatnonzero(internal & known & ~done)
+        if len(ready) == 0:
+            break
+        done[ready] = True
+        k = nchild[ready]
+        child_ids = np.repeat(first_child[ready], k) + _intra_run(k)
+        # the next sibling, but the last child inherits its parent's
+        esc = (child_ids + 1).astype(np.uint32)
+        esc[np.cumsum(k) - 1] = escape[ready]
+        escape[child_ids] = esc
+        known[child_ids] = True
+    return escape
+
+
+def legacy_walker_arrays(geometry, include_legacy_bvh=None):
+    """{nodes, escape, tri_vertices} of the escape-rope walker: packed
+    when ``include_legacy_bvh`` (None: the geometry has a BVH and at
+    most ``LEGACY_WALKER_MAX_TRIANGLES`` triangles), else the
+    placeholders."""
+    bvh = geometry.bvh
+    if include_legacy_bvh is None:
+        include_legacy_bvh = (bvh is not None and len(geometry.mesh.triangles)
+                              <= LEGACY_WALKER_MAX_TRIANGLES)
+    if not include_legacy_bvh:
+        return {k: v.copy() for k, v in LEGACY_PLACEHOLDERS.items()}
+    if bvh is None:
+        raise ValueError('geometry has no BVH; call '
+                         'chroma_tpu_torch.loader.create_geometry_from_obj')
+    nodes = from_uint4(bvh.nodes)
+    return dict(nodes=nodes, escape=compute_escape_pointers(nodes),
+                tri_vertices=np.asarray(
+                    geometry.mesh.vertices[geometry.mesh.triangles],
+                    np.float32))
+
+
 def pack_geometry_arrays(geometry, wavelengths=None, times=None,
-                         instancing=None):
-    """(numpy arrays by field, static fields) for a flattened Geometry."""
+                         instancing=None, include_legacy_bvh=None):
+    """(numpy arrays by field, static fields) for a flattened Geometry;
+    ``include_legacy_bvh`` as ``legacy_walker_arrays``."""
     wavelengths = np.asarray(standard_wavelengths if wavelengths is None
                              else wavelengths, dtype=np.float32)
     wavelength_step = _uniform_step(wavelengths, 'wavelengths')
@@ -351,7 +424,8 @@ def pack_geometry_arrays(geometry, wavelengths=None, times=None,
         world_origin=np.asarray(world.world_origin, np.float32),
         world_scale=np.asarray(world.world_scale, np.float32),
         legacy_world_origin=np.asarray(legacy.world_origin, np.float32),
-        legacy_world_scale=np.asarray(legacy.world_scale, np.float32))
+        legacy_world_scale=np.asarray(legacy.world_scale, np.float32),
+        **legacy_walker_arrays(geometry, include_legacy_bvh))
     static = dict(
         wavelength0=float(wavelengths[0]), wavelength_step=wavelength_step,
         nwavelengths=W, time0=float(times[0]), time_step=time_step,
@@ -384,12 +458,14 @@ def detector_arrays(detector):
 
 
 def pack_geometry(geometry, device=None, wavelengths=None, times=None,
-                  instancing=None):
+                  instancing=None, include_legacy_bvh=None):
     """GeometryTables on ``device`` (default: the card) for a flattened
-    Geometry."""
+    Geometry.  ``instancing`` True/False forces the TLAS/BLAS MBVH on or
+    off (None decides); ``include_legacy_bvh`` as
+    ``legacy_walker_arrays``."""
     device = resolve(device)
     arrays, static = pack_geometry_arrays(geometry, wavelengths, times,
-                                          instancing)
+                                          instancing, include_legacy_bvh)
     return tables_from_numpy(arrays, None, {'geom': static}, device)[0]
 
 
@@ -401,3 +477,18 @@ def pack_detector(detector, device=None, wavelengths=None, times=None):
     d_arrays, d_static = detector_arrays(detector)
     return tables_from_numpy(g_arrays, d_arrays,
                              {'geom': g_static, 'det': d_static}, device)
+
+
+def interp_property(tables, table, material_index, wavelength):
+    """Per-photon lookup of a (M, W) wavelength table at (index, lambda):
+    clamp to the uniform grid and interpolate linearly (reference:
+    chroma/cuda/geometry.h:62).  ``table`` may be (M, C, W) with a
+    composite leading index."""
+    n = tables.nwavelengths
+    x = (wavelength - tables.wavelength0) / tables.wavelength_step
+    x = torch.clamp(x, 0.0, n - 1.0)
+    jl = torch.clamp(x.to(torch.int32), 0, n - 2).long()
+    f = x - jl
+    lo = table[material_index, jl]
+    hi = table[material_index, jl + 1]
+    return lo + (hi - lo) * f

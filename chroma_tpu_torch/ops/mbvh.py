@@ -1,8 +1,8 @@
 """Closest-hit queries against the MBVH.
 
 Counterpart of chroma_tpu/ops/mbvh.py.  ``intersect_mesh`` keeps that
-module's contract, and ``walk_window`` runs the fused driver's on-deck
-walker window.  Both dispatch on where the tensors live: CUDA tensors
+module's contract, and ``walk_window`` runs the fused driver's walker
+window.  Both dispatch on where the tensors live: CUDA tensors
 go to the hand-written walker kernels, CPU tensors to their plain
 PyTorch versions (ops/mbvh_walk.py).  Both compute the TPU walker's
 traversal, so results do not depend on the device.
@@ -58,12 +58,15 @@ def intersect_mesh(origin, direction, tables, last_hit_triangle=None,
 
 
 def walk_window(tables, W, n_iters, od_slots, rbase, rcount, root_lohi,
-                plain=False):
-    """``n_iters`` on-deck walker iterations over every lane of the
-    walker state ``W`` (ops/mbvh_walk.py ``state_fields``), in place:
-    walks advance one row each, and a walk that drains parks its results
-    and restarts on its lane's on-deck ray.  ``rbase``, ``rcount`` and
-    ``root_lohi`` come from ``mbvh_walk.root_seed_args(tables)``.
+                plain=False, prune=True, nactive=None):
+    """``n_iters`` walker iterations over every lane of the walker state
+    ``W`` (ops/mbvh_walk.py ``state_fields``), in place: walks advance
+    one row each; with ``od_slots`` 1 or 2 a walk that drains parks its
+    results and restarts on its lane's on-deck ray, with 0 it idles.
+    ``rbase``, ``rcount`` and ``root_lohi`` come from
+    ``mbvh_walk.root_seed_args(tables)``.  ``prune=False`` keeps every
+    level with a pending child live.  ``nactive`` (a 0-d int64 tensor
+    on the state's device) gets the active lane-iterations added.
     ``plain=True`` runs the plain version on any device (the reference
     the kernel is held against on a card)."""
     walk = mbvh_walk.walk_window_plain \
@@ -71,4 +74,5 @@ def walk_window(tables, W, n_iters, od_slots, rbase, rcount, root_lohi,
         else mbvh_walk.walk_window_cuda
     return walk(tables.mbvh_rows, W, int(n_iters), int(tables.mbvh_depth),
                 bool(tables.mbvh_instanced), tquant_scale(tables),
-                int(od_slots), rbase, rcount, root_lohi)
+                int(od_slots), rbase, rcount, root_lohi, prune=prune,
+                nactive=nactive)

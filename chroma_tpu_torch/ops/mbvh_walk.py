@@ -14,16 +14,23 @@ The closest-hit walk computes what ``intersect_mesh_pallas`` computes:
   ones is the same walk).  Every a*b+c rounds twice here, as in the
   kernel, which is built with --fmad=false: the two agree bit for bit.
 
-The on-deck window runs ``n_iters`` iterations of ``walk_iter(ondeck=
-True)`` over every lane of the fused driver (ops/fused.py): a walk that
-drains parks its results and restarts on the lane's on-deck ray within
-the same iteration (K3; K4 with a second slot).
+The window runs ``n_iters`` iterations of ``walk_iter`` over every
+lane of the fused driver (ops/fused.py), the walks carried in the lane
+state from one window to the next.  With on-deck slots (``od_slots`` 1
+or 2: K3, K4) a walk that drains parks its results and restarts on the
+lane's on-deck ray within the same iteration; without them
+(``od_slots=0``: K5) a drained walk idles until the service pass
+reseeds it.  ``prune=False`` (K6, on any of them) keeps a level live
+while any child is pending, as the TPU kernel's ``do_prune=False``.
 
 * ``walk_window_cuda`` launches csrc/mbvh_walk_window.cu: one warp per
   lane, the lane state in device memory across launches.
 * ``walk_window_plain`` is the same in vectorized torch, stepping only
   the lanes whose state can still change (a drained lane with no
   on-deck ray left is a fixed point).  Bit-equal to the kernel.
+
+Both can count the iterations after which a lane's walk is active
+(``nactive``, the fused driver's ``collect_stats``).
 
 State is lanes-first: ``tcodes`` (n, S, BRANCH) int32 holds the
 unbiased 16-bit entry codes of each pending level (slot s is tree level
@@ -90,8 +97,15 @@ class LaunchCounter:
 
 
 closest_hit_launches = LaunchCounter()
-# one counter per on-deck variant: K3 (od_slots 1) and K4 (od_slots 2)
-walk_window_launches = {1: LaunchCounter(), 2: LaunchCounter()}
+# one counter per window variant: keyed by od_slots when pruning (K5 0,
+# K3 1, K4 2), by (od_slots, 'noprune') without (K6); ``window_key``
+walk_window_launches = {k: LaunchCounter() for k in (
+    1, 2, 0, (1, 'noprune'), (2, 'noprune'), (0, 'noprune'))}
+
+
+def window_key(od_slots, prune):
+    """The ``walk_window_launches`` key of a window variant."""
+    return od_slots if prune else (od_slots, 'noprune')
 
 
 def nslots(depth):
@@ -254,10 +268,12 @@ def seed(rows, depth, instanced, sq, org, dirv, lht, active):
     return W
 
 
-def walk_iter(row, W, depth, instanced, sq):
+def walk_iter(row, W, depth, instanced, sq, prune=True):
     """One walk iteration: process the row each active walk popped last,
     then pop its next row (inactive walks only pop).  ``row`` (m,
-    ROW_WIDTH) int32, rows[ptr].  Returns the updated state dict."""
+    ROW_WIDTH) int32, rows[ptr].  ``prune=False`` keeps every level with
+    a pending child live (the TPU kernel's ``do_prune=False``).  Returns
+    the updated state dict."""
     dev = row.device
     m_ = row.shape[0]
     rowf = _f32(row)
@@ -370,8 +386,11 @@ def walk_iter(row, W, depth, instanced, sq):
     bases = torch.where(sel, row[:, HDR_BASE, None], W['bases'])
 
     # ---- pop the nearest pending child of the deepest live level ------
-    thresh = torch.clamp(torch.floor(min_dist * sq) + 1.0, 0.0,
-                         65534.0).to(torch.int32)
+    if prune:
+        thresh = torch.clamp(torch.floor(min_dist * sq) + 1.0, 0.0,
+                             65534.0).to(torch.int32)
+    else:
+        thresh = torch.full_like(lvl_cur, SENT - 1)
     live = tcodes.min(dim=2).values <= thresh[:, None]          # (m, S)
     levels = torch.arange(1, S + 1, device=dev)
     lvl = torch.where(live, levels, -1).max(dim=1).values.to(torch.int32)
@@ -545,14 +564,14 @@ def park_results(W, which='park'):
 
 
 def walk_iter_ondeck(row, W, depth, instanced, sq, od_slots, rbase, rcount,
-                     root_lohi):
+                     root_lohi, prune=True):
     """``walk_iter`` plus the drain-restart cascade of the TPU kernel's
     on-deck path (mbvh_pallas.py:405-513): a walk that drains this
     iteration parks its results (``park``, or ``park2`` once ``park`` is
     taken) and restarts on the slot's on-deck ray, root children seeded
     from ``root_lohi`` and the nearest popped.  ``rbase``/``rcount``:
     the root row's HDR_BASE and child count.  Returns the new state."""
-    out = walk_iter(row, W, depth, instanced, sq)
+    out = walk_iter(row, W, depth, instanced, sq, prune)
     dev = row.device
     pad = W['pad']
     act = out['act']
@@ -634,11 +653,11 @@ def walk_iter_ondeck(row, W, depth, instanced, sq, od_slots, rbase, rcount,
 
 def random_window_state(rows, depth, instanced, sq, n, od_slots,
                         rng_seed):
-    """A seeded on-deck window state in ``window_layout``, for holding
-    the window kernel against its plain version: walks from rays near
-    the origin, ~10% of lanes inactive, an on-deck ray on ~2/3 of the
-    lanes and (two slots) a second one on ~2/5 (only where the first is
-    set)."""
+    """A seeded window state in ``window_layout``, for holding the window
+    kernel against its plain version: walks from rays near the origin,
+    ~10% of lanes inactive, and with on-deck slots an on-deck ray on ~2/3
+    of the lanes and (two slots) a second one on ~2/5 (only where the
+    first is set)."""
     dev = rows.device
     rng = np.random.RandomState(rng_seed)
 
@@ -675,6 +694,8 @@ def window_state(rows, depth, instanced, sq, org, dirv, active, ondeck):
 def _may_change(W, od_slots):
     """Lanes whose state an iteration can still change: walking, not
     yet popped empty, or drained with an on-deck ray due to swap in."""
+    if od_slots == 0:
+        return W['act'] | (W['lvl'] >= 0)
     pad = W['pad']
     parked = (pad & 1) != 0
     due = ~parked & W['od_valid']
@@ -684,8 +705,9 @@ def _may_change(W, od_slots):
 
 
 def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
-                      rbase, rcount, root_lohi, work=None):
-    """``n_iters`` on-deck iterations over every lane of ``W``, in place
+                      rbase, rcount, root_lohi, work=None, prune=True,
+                      nactive=None):
+    """``n_iters`` window iterations over every lane of ``W``, in place
     (any device).  Same arguments as ``walk_window_cuda``; ``work``, a
     dict, if given tallies the rows processed (``count_rows``), the
     restart seeds (``seeds``) and the lanes that changed (``changed``)."""
@@ -694,9 +716,14 @@ def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
         if idx.numel() == 0:
             break
         sub = {k: v[idx] for k, v in W.items()}
-        new = walk_iter_ondeck(rows[sub['ptr'].long()], sub, depth,
-                               instanced, sq, od_slots, rbase, rcount,
-                               root_lohi)
+        row = rows[sub['ptr'].long()]
+        if od_slots == 0:
+            new = walk_iter(row, sub, depth, instanced, sq, prune)
+        else:
+            new = walk_iter_ondeck(row, sub, depth, instanced, sq, od_slots,
+                                   rbase, rcount, root_lohi, prune)
+        if nactive is not None:
+            nactive += new['act'].sum()
         if work is not None:
             count_rows(work, rows, sub['ptr'][sub['act']].long())
             swapped = ((new['pad'] & ~sub['pad']) & 5) != 0
@@ -711,22 +738,27 @@ def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
 
 
 def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
-                     rbase, rcount, root_lohi):
+                     rbase, rcount, root_lohi, prune=True, nactive=None):
     """Launch csrc/mbvh_walk_window.cu on CUDA tensors: ``n_iters``
-    on-deck iterations over every lane of ``W``, in place.  ``W`` holds
+    window iterations over every lane of ``W``, in place.  ``W`` holds
     the fields of ``state_fields(depth, instanced, od_slots)`` in
     ``window_layout``; ``rows`` (R, ROW_WIDTH) int32; ``root_lohi``
-    (6 * BRANCH,) f32; ``sq`` the entry-code scale as a float32 value."""
+    (6 * BRANCH,) f32; ``sq`` the entry-code scale as a float32 value;
+    ``od_slots`` 0 (K5), 1 (K3) or 2 (K4); ``prune=False`` is K6.
+    ``nactive``, a 0-d int64 tensor on the card, if given gets the
+    window's active lane-iterations added."""
     from chroma_tpu_torch import _build
     check_kernel_layout(depth)
-    if od_slots not in (1, 2):
-        raise ValueError('od_slots must be 1 or 2, got %r' % (od_slots,))
+    if od_slots not in (0, 1, 2):
+        raise ValueError('od_slots must be 0, 1 or 2, got %r' % (od_slots,))
     dev = rows.device
     n = W['act'].shape[0]
     fields = state_fields(depth, instanced, od_slots)
-    for name, t, dtype, shape in (
-            ('rows', rows, torch.int32, (rows.shape[0], ROW_WIDTH)),
-            ('root_lohi', root_lohi, torch.float32, (6 * BRANCH,))):
+    checked = [('rows', rows, torch.int32, (rows.shape[0], ROW_WIDTH)),
+               ('root_lohi', root_lohi, torch.float32, (6 * BRANCH,))]
+    if nactive is not None:
+        checked.append(('nactive', nactive, torch.int64, ()))
+    for name, t, dtype, shape in checked:
         if t.device != dev or dev.type != 'cuda':
             raise ValueError('%s must be a CUDA tensor on %s' % (name, dev))
         if t.dtype != dtype or tuple(t.shape) != shape \
@@ -757,11 +789,13 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mbvh_walk_window(
             rows.data_ptr(), arr, len(ptrs), n, float(sq), int(depth),
-            int(bool(instanced)), int(od_slots), int(n_iters), int(rbase), int(rcount), root_lohi.data_ptr(), stream)
+            int(bool(instanced)), int(od_slots), int(n_iters), int(rbase),
+            int(rcount), root_lohi.data_ptr(), int(bool(prune)),
+            None if nactive is None else nactive.data_ptr(), stream)
     if err != 0:
         raise RuntimeError('mbvh_walk_window launch failed: cudaError %d'
                            % err)
-    walk_window_launches[od_slots].add()
+    walk_window_launches[window_key(od_slots, prune)].add()
     return W
 
 

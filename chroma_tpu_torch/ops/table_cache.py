@@ -3,10 +3,9 @@
 Counterpart of chroma_tpu/ops/table_cache.py: one ``.npy`` per array
 field plus a ``meta.json`` of static fields under
 ``$CHROMA_TPU_CACHE/tables/<name>``.  Both packages read what either
-wrote, with the same staleness checks.  Fields the port does not carry
-(the legacy walker's ``nodes``, ``escape``, ``tri_vertices``) are
-skipped on load and written as the JAX package's empty placeholders on
-save, so a cache this package writes still loads in the JAX package.
+wrote, with the same staleness checks.  An entry without the escape-rope
+walker's files (``nodes``, ``escape``, ``tri_vertices``) loads with
+their placeholders; loading never writes.
 """
 import json
 import os
@@ -17,15 +16,10 @@ from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.bvh.mbvh import (LAYOUT_VERSION, BRANCH, ROW_WIDTH,
                                        TARGET_DEGREE, builder_tag)
 from chroma_tpu_torch.ops.geometry_pack import (
-    GeometryTables, DetectorTables, U32_FIELDS, array_fields, static_fields,
-    tables_from_numpy)
+    GeometryTables, DetectorTables, LEGACY_PLACEHOLDERS, U32_FIELDS,
+    array_fields, static_fields, tables_from_numpy)
 
 _FORMAT_VERSION = 2
-_LEGACY_PLACEHOLDERS = {
-    'nodes': np.zeros((1, 4), np.uint32),
-    'escape': np.zeros(1, np.uint32),
-    'tri_vertices': np.zeros((1, 3, 3), np.float32),
-}
 
 
 def _cache_dir(name):
@@ -52,8 +46,6 @@ def save_tables(name, geom, det=None):
                 a = a.view(np.uint32)
             np.save(os.path.join(d, '%s_%s.npy' % (prefix, f)), a)
         meta[prefix] = {f: getattr(obj, f) for f in static_fields(cls)}
-    for f, a in _LEGACY_PLACEHOLDERS.items():
-        np.save(os.path.join(d, 'geom_%s.npy' % f), a)
     with open(os.path.join(d, 'meta.json'), 'w') as f:
         json.dump(meta, f)
 
@@ -78,8 +70,15 @@ def load_tables(name, device=None):
         return None
 
     def arrays(prefix, cls):
-        return {f: np.load(os.path.join(d, '%s_%s.npy' % (prefix, f)))
-                for f in array_fields(cls)}
+        out = {}
+        for f in array_fields(cls):
+            path = os.path.join(d, '%s_%s.npy' % (prefix, f))
+            if prefix == 'geom' and f in LEGACY_PLACEHOLDERS \
+                    and not os.path.exists(path):
+                out[f] = LEGACY_PLACEHOLDERS[f]
+            else:
+                out[f] = np.load(path)
+        return out
 
     try:
         geom_arrays = arrays('geom', GeometryTables)

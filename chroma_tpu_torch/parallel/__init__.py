@@ -140,13 +140,13 @@ def _map_shards(mesh, fn):
 
 
 def propagate_sharded(state, gpu_geometry, seed, mesh, max_steps=100,
-                      use_weights=False, scatter_first=0, od_slots=1,
-                      width=None, service_every=fused.SERVICE_EVERY):
+                      use_weights=False, scatter_first=0, **fused_kw):
     """Propagate a photon batch sharded over ``mesh``: shard ``d``
     runs ``propagate_fused`` on ``mesh.devices[d]`` with the generator
-    ``shard_generator(seed, d, device)``; the other arguments are
-    ``propagate_fused``'s.  The batch must divide into the shards
-    (``pad_to_multiple``).
+    ``shard_generator(seed, d, device)``; the other arguments
+    (``fused_kw`` too: width, service_every, od_slots and the driver's
+    other options) are ``propagate_fused``'s.  The batch must divide
+    into the shards (``pad_to_multiple``).
 
     Returns ``(state, stats)`` on the state's own device: the shards in
     order, each with the caller's ``index``, and the shards' int32[4]
@@ -160,9 +160,8 @@ def propagate_sharded(state, gpu_geometry, seed, mesh, max_steps=100,
         return fused.propagate_fused(
             shards[d], geom, fused.uniform_draws(
                 shard_generator(seed, d, dev)),
-            max_steps=max_steps, width=width, service_every=service_every,
-            od_slots=od_slots, scatter_first=scatter_first,
-            use_weights=use_weights)
+            max_steps=max_steps, scatter_first=scatter_first,
+            use_weights=use_weights, **fused_kw)
 
     outs = _map_shards(mesh, run)
     out = {k: torch.cat([o[k].to(home) for o, _ in outs]) for k in state}
@@ -183,14 +182,15 @@ def reduce_channels(channels, device):
 
 
 def propagate_and_daq_sharded(state, gpu_detector, seed, mesh, nchannels,
-                              max_steps=100, ndaq=1, nevents=1):
+                              max_steps=100, ndaq=1, nevents=1, **fused_kw):
     """Propagation and DAQ sharded over ``mesh``: each shard propagates
     as in ``propagate_sharded`` and then digitizes its photons with
     ``ops/daq.run_daq`` on its own device, drawing its (3, ndaq, n)
     block from the same shard generator after the propagation's draws.
     The channel arrays are combined on ``mesh.devices[0]``
     (``reduce_channels``).  ``nevents`` > 1 digitizes a batch of events
-    into per-event channel blocks by photon ``evidx``.
+    into per-event channel blocks by photon ``evidx``.  ``fused_kw``
+    are ``propagate_fused``'s options.
 
     Returns ``(state, dict(t, q, flags))``: the propagated shards in
     order on the state's own device, and the combined channels."""
@@ -203,7 +203,7 @@ def propagate_and_daq_sharded(state, gpu_detector, seed, mesh, nchannels,
         generator = shard_generator(seed, d, dev)
         out, _ = fused.propagate_fused(shards[d], geom,
                                        fused.uniform_draws(generator),
-                                       max_steps=max_steps)
+                                       max_steps=max_steps, **fused_kw)
         u = daq_ops.daq_draws(generator, ndaq, out['pos'].shape[0])
         return out, daq_ops.run_daq(out, geom, det, u, nchannels,
                                     ndaq=ndaq, nevents=nevents)

@@ -44,7 +44,8 @@ def _photon_tracks(tracking, start, end):
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
                  device=None, driver='fused', photon_tracking=False,
-                 particle_tracking=False, devices=None, mesh=None):
+                 particle_tracking=False, devices=None, mesh=None,
+                 driver_options=None):
         """``detector``: a Geometry/Detector (flattened here if needed),
         a geometry string for chroma_tpu_torch.loader, or packed tables
         already on a device (a ``gpu.GPUDetector`` or ``gpu.GPUGeometry``,
@@ -60,9 +61,13 @@ class Simulation(object):
         a pool they never use.  ``particle_tracking`` keeps the
         generator's particle steps on the vertices.  ``driver`` is
         ``GPUPhotons.propagate``'s: 'fused' (the on-deck lane-pool
-        driver) or 'steps' (the step loop).  ``photon_tracking`` runs
-        the tracking mode instead and fills each event's
-        ``photon_tracks``.
+        driver), 'steps' (the step loop) or 'compacting' (the round loop);
+        ``driver_options`` (a dict) are its other keywords, passed to
+        every propagation: ``width``, ``service_every``, ``od_slots``,
+        ``ondeck``, ``prune``, ``service_frac``, ``drain_shrink``,
+        ``chains``, ``collect_stats`` for 'fused', ``sort_every`` for
+        'steps'.  ``photon_tracking`` runs the tracking mode instead and
+        fills each event's ``photon_tracks``.
 
         ``devices`` (a device list, repeats allowed) or ``mesh`` (a
         ``parallel.PhotonMesh``) shard every propagation over those
@@ -76,6 +81,7 @@ class Simulation(object):
         if device is None and mesh is not None:
             device = mesh.devices[0]
         self.driver = driver
+        self.driver_options = dict(driver_options or {})
         self.photon_tracking = photon_tracking
         self.seed = pick_seed() if seed is None else seed
         np.random.seed(self.seed)
@@ -115,6 +121,13 @@ class Simulation(object):
         self.rng_states = gpu.get_rng_states(seed=self.seed,
                                              device=self.device)
         self.pdf_config = None
+
+    def _propagate(self, gpu_photons, **kw):
+        """``gpu_photons.propagate`` with this simulation's geometry,
+        generator, driver, its options and mesh."""
+        return gpu_photons.propagate(
+            self.gpu_geometry, self.rng_states, driver=self.driver,
+            mesh=self.mesh, **self.driver_options, **kw)
 
     def close(self):
         """End the photon-generator workers, if any."""
@@ -157,15 +170,13 @@ class Simulation(object):
             state, channels = parallel.propagate_and_daq_sharded(
                 state, self.gpu_geometry, self.rng_states.next(),
                 self.mesh, nch, max_steps=max_steps,
-                nevents=len(batch_events))
+                nevents=len(batch_events), **self.driver_options)
             state = photon_ops.unsort_photons(state)
             gpu_photons.state = {k: v[:n] for k, v in state.items()}
             tracking = None
         else:
-            tracking = gpu_photons.propagate(
-                self.gpu_geometry, self.rng_states, max_steps=max_steps,
-                driver=self.driver, track=self.photon_tracking,
-                mesh=self.mesh)
+            tracking = self._propagate(gpu_photons, max_steps=max_steps,
+                                       track=self.photon_tracking)
 
         if keep_photons_end:
             batch_photons_end = gpu_photons.get()
@@ -282,8 +293,7 @@ class Simulation(object):
             iterable = itertoolset.repeating_iterator(iterable, nreps)
         for ev in iterable:
             gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device)
-            gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                                  driver=self.driver, mesh=self.mesh)
+            self._propagate(gpu_photons)
             self.gpu_pdf.add_hits_to_pdf(
                 self._acquire(self.gpu_daq, (gpu_photons, 1.0)))
         return self.gpu_pdf.get_pdfs()
@@ -309,14 +319,10 @@ class Simulation(object):
                                         ncopies=nreps)
             scatter = gpu.GPUPhotons(ev.photons_beg, self.device,
                                      ncopies=nreps * nscatter)
-            no_scatter.propagate(self.gpu_geometry, self.rng_states,
-                                 use_weights=True, scatter_first=-1,
-                                 max_steps=10, driver=self.driver,
-                                 mesh=self.mesh)
-            scatter.propagate(self.gpu_geometry, self.rng_states,
-                              use_weights=True, scatter_first=1,
-                              max_steps=5, driver=self.driver,
-                              mesh=self.mesh)
+            self._propagate(no_scatter, use_weights=True, scatter_first=-1,
+                            max_steps=10)
+            self._propagate(scatter, use_weights=True, scatter_first=1,
+                            max_steps=5)
             stride = no_scatter.stride
             for i in range(no_scatter.ncopies):
                 ns_slice = no_scatter.select(event.SURFACE_DETECT,
@@ -344,8 +350,7 @@ class Simulation(object):
         for ev in self._photon_events(iterable):
             gpu_photons = gpu.GPUPhotons(ev.photons_beg, self.device,
                                          ncopies=nreps)
-            gpu_photons.propagate(self.gpu_geometry, self.rng_states,
-                                  driver=self.driver, mesh=self.mesh)
+            self._propagate(gpu_photons)
             for ph_slice in gpu_photons.iterate_copies():
                 for _ in range(ndaq):
                     yield self._acquire(self.gpu_daq, (ph_slice, 1.0))

@@ -176,7 +176,8 @@ def test_port_never_imports_jax():
         "             'models', 'bvh.optimize', 'bvh.bvh', 'bvh.build',",
         "             'cli.geo', 'cli.bvh', 'io.root', 'io.ntuple',",
         "             'parallel', 'parabola', 'color', 'color.colormap',",
-        "             'histogram.histogramdd', 'histogram.graph', 'tools'):",
+        "             'histogram.histogramdd', 'histogram.graph', 'tools',",
+        "             'ops.mesh', 'ops.intersect'):",
         "    assert 'chroma_tpu_torch.' + name in names, name",
         "    assert 'chroma_tpu_torch.' + name in sys.modules, name",
         'import chip_smoke',

@@ -76,9 +76,9 @@ def _assert_equal_tables(jax_tables, port):
         assert np.array_equal(got, want, equal_nan=True), name
     for name in tgp.static_fields(cls):
         assert getattr(port, name) == static[name], name
-    # the port carries every JAX field except the legacy walker's
-    assert set(arrays) - set(tgp.array_fields(cls)) <= {
-        'nodes', 'escape', 'tri_vertices'}
+    # the port carries every JAX field, the escape-rope walker's
+    # ``nodes``, ``escape`` and ``tri_vertices`` among them
+    assert set(arrays) == set(tgp.array_fields(cls))
     assert set(static) == set(tgp.static_fields(cls))
 
 
