@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles chroma_tpu_torch/csrc/*.cu with nvcc, one process
      per source, all started together; prints each kernel's ptxas
-     registers, stack frame and spills;
+     registers, stack frame and spills (the K5 kernel's persistent grid
+     is printed in phases 4 and 15);
   3. the closest-hit walker kernel (one warp per ray) against its plain
      PyTorch version on the card (flat sphere, instanced demo.tiny,
      last-hit/active, ragged widths at the warp and block edges, the tie
@@ -18,10 +19,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      walker (ops/mesh.py ``intersect_mesh`` and ``distance_to_mesh``,
      plain PyTorch over its own BVH): triangle ids equal on >= 0.999 of
      the rays, distances within 1e-4 relative where they are;
-  4. the window kernel against its plain version in every variant: K3,
-     K4 and K5 (od_slots 1, 2, 0), each pruning and not (K6): flat
+  4. the window kernels against their plain version in every variant:
+     K3, K4 (csrc/mbvh_walk_window.cu) and K5 (od_slots 1, 2, 0; K5 is
+     csrc/mbvh_walk_window_k5.cu), each pruning and not (K6): flat
      sphere, demo.tiny, the tie scene and the full demo, ragged widths;
-     a service window and a long window in which every walk drains;
+     a service window (for K5 one iteration first, the ``service_frac``
+     launch) and a long window in which every walk drains;
      every state field bit-equal and the active lane-iteration count
      (stats[3]) equal; both times and the bound at full-demo width;
   5. the whole on-deck driver on demo.tiny, window kernel against plain
@@ -189,6 +192,8 @@ ROUNDS = 5              # phase 6: timed propagations a side, alternated
 # block of 8 rays; 85, 341 and 1001 are not multiples of the block
 GROUP_EDGES = (1, 31, 33, 85, 129, 341, 1001)
 
+# ~1 ms of a busy card while the host enqueues a timed window launch
+SLEEP_CYCLES = 2000000
 PEAK_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM, HBM3
 # Float operations, counted op by op from
@@ -520,8 +525,8 @@ def ptxas_summary(log):
     nvcc -Xptxas=-v output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r'(closest_hit_kernel|walk_window_kernel)I'
-                      r'((?:L[a-z]+\d+E)+)E', line)
+        m = re.search(r'(closest_hit_kernel|walk_window_kernel|'
+                      r'walk_window_k5_kernel)I((?:L[a-z]+\d+E)+)E', line)
         if 'Compiling entry function' in line and m:
             name = '%s<%s>' % (m.group(1), ', '.join(
                 re.findall(r'L[a-z]+(\d+)E', m.group(2))))
@@ -661,9 +666,10 @@ def variant(od_slots, prune=True):
 
 def compare_window(tables, n, od_slots, seed, what, state=None, prune=True):
     """Window kernel against plain from one seeded state (``state``, or
-    a random one of ``n`` lanes): a service window, then a long window
-    in which every walk drains; the state bit-equal and the active
-    lane-iterations (stats[3]) equal after each."""
+    a random one of ``n`` lanes): a service window (without on-deck
+    slots, one iteration first: the ``service_frac`` launch), then a long
+    window in which every walk drains; the state bit-equal and the
+    active lane-iterations (stats[3]) equal after each."""
     depth, inst = int(tables.mbvh_depth), bool(tables.mbvh_instanced)
     args = mbvh_walk.root_seed_args(tables)
     k = state if state is not None else mbvh_walk.random_window_state(
@@ -672,7 +678,10 @@ def compare_window(tables, n, od_slots, seed, what, state=None, prune=True):
     p = clone_state(k)
     err = 0.0
     counts = []
-    for iters in (fused.SERVICE_EVERY, LONG_WINDOW):
+    windows = (fused.SERVICE_EVERY, LONG_WINDOW)
+    if od_slots == 0:
+        windows = (1,) + windows
+    for iters in windows:
         ck = torch.zeros((), dtype=torch.int64, device=k['act'].device)
         cp = torch.zeros_like(ck)
         mbvh_walk.walk_window_cuda(
@@ -695,10 +704,17 @@ def compare_window(tables, n, od_slots, seed, what, state=None, prune=True):
     check(parked > 0 or n < 32 or od_slots == 0,
           '%s: no walk parked' % what)
     print('window %s, %s, od_slots %d: %d lanes, %d parked, bit-equal '
-          'after %d and %d iterations, active lane-iterations %s equal'
+          'after windows of %s iterations, active lane-iterations %s equal'
           % (what, variant(od_slots, prune), od_slots, n, parked,
-             fused.SERVICE_EVERY, LONG_WINDOW, counts))
+             '/'.join(map(str, windows)), counts))
     return err
+
+
+def print_k5_grid(what, tables):
+    """The K5 kernel's persistent grid on ``tables``."""
+    print('K5 (csrc/mbvh_walk_window_k5.cu), %s: persistent grid of %d '
+          'warps' % (what, mbvh_walk.k5_persistent_warps(tables)),
+          flush=True)
 
 
 def state_bytes(W):
@@ -744,12 +760,17 @@ def window_bound(tables, W0, od_slots, args, prune=True):
 def time_window(tables, n, od_slots, reps=5, prune=True):
     """Device ms of one service window from a fresh seeded state: the
     kernel (mean of ``reps`` runs) and the plain version (one run), each
-    after a warm-up run; and the window's bound."""
+    after a warm-up run; and the window's bound.  The wrappers are called
+    with the entry-code scale computed before (``ops.mbvh.walk_window``
+    reads it with a host sync), and the card sleeps
+    (``torch.cuda._sleep``) while the host runs the kernel's wrapper, so
+    the kernel's time holds no host time (through ``walk_window`` it
+    would hold ~0.2 ms, the wrapper's after that sync)."""
     depth, inst = int(tables.mbvh_depth), bool(tables.mbvh_instanced)
     args = mbvh_walk.root_seed_args(tables)
+    sq = tmbvh.tquant_scale(tables)
     W0 = mbvh_walk.random_window_state(
-        tables.mbvh_rows, depth, inst, tmbvh.tquant_scale(tables), n,
-        od_slots, 17)
+        tables.mbvh_rows, depth, inst, sq, n, od_slots, 17)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     out = []
@@ -757,10 +778,14 @@ def time_window(tables, n, od_slots, reps=5, prune=True):
         times = []
         for r in range(nrep + 1):
             W = clone_state(W0)
+            walk = mbvh_walk.walk_window_plain if plain \
+                else mbvh_walk.walk_window_cuda
             torch.cuda.synchronize()
+            if not plain:
+                torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
-            tmbvh.walk_window(tables, W, fused.SERVICE_EVERY, od_slots,
-                              *args, plain=plain, prune=prune)
+            walk(tables.mbvh_rows, W, fused.SERVICE_EVERY, depth, inst, sq,
+                 od_slots, *args, prune=prune)
             stop.record()
             torch.cuda.synchronize()
             if r:
@@ -1464,6 +1489,7 @@ def sno_phase(dev, card):
     report_bound('window K3, SNO-like flat, %d lanes x %d iterations'
                  % (fused.DEFAULT_WIDTH, fused.SERVICE_EVERY), b3, ms3)
     # flat K5 (no on-deck slots) the same way
+    print_k5_grid('SNO-like flat', g)
     err5 = compare_window(g, fused.DEFAULT_WIDTH, 0, 5, 'SNO-like flat')
     ms5, plain_ms5, b5 = time_window(g, fused.DEFAULT_WIDTH, 0)
     print('window SNO-like flat (K5), %d lanes, %d iterations: kernel '
@@ -1711,6 +1737,20 @@ def shard_phase(gg, card, golden_det_frac):
     return launches
 
 
+def window_source(od_slots):
+    """The source file of a window variant's kernel."""
+    return 'mbvh_walk_window_k5.cu' if od_slots == 0 \
+        else 'mbvh_walk_window.cu'
+
+
+def window_build(od_slots, instanced):
+    """The kernel build of a window variant."""
+    inst = 'true' if instanced else 'false'
+    return 'walk_window_k5_kernel<%s>' % inst \
+        if od_slots == 0 \
+        else 'walk_window_kernel<%s, %d>' % (inst, od_slots)
+
+
 def timing(ms_, plain, b):
     return {'ms': ms_, 'plain_ms': plain, 'bound_ms': b['bound'][0],
             'bound_by': b['bound'][1], 'library_ms': None,
@@ -1738,23 +1778,25 @@ def kernel_entries(closest, werr, wms, w_launches, sno):
         entries.append(dict({
             'name': 'mbvh_walk_window_od%d%s'
                     % (od_slots, '' if prune else '_noprune'),
-            'variant': '%s, walk_window_kernel<true, %d>, prune %s'
-                       % (variant(od_slots, prune), od_slots,
+            'variant': '%s, %s, prune %s'
+                       % (variant(od_slots, prune),
+                          window_build(od_slots, True),
                           'on' if prune else 'off'),
             'route': 'cuda',
-            'source': 'chroma_tpu_torch/csrc/mbvh_walk_window.cu',
+            'source': 'chroma_tpu_torch/csrc/' + window_source(od_slots),
             'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
             'launches': w_launches[key],
             'max_abs_err': werr[key]}, **timing(*wms[key])))
     for key, name, what in (
             ('k1', 'mbvh_closest_hit_flat', 'K1, closest_hit_kernel<false>'),
             ('k3', 'mbvh_walk_window_od1_flat',
-             'K3 flat, walk_window_kernel<false, 1>'),
+             'K3 flat, ' + window_build(1, False)),
             ('k5', 'mbvh_walk_window_od0_flat',
-             'K5 flat, walk_window_kernel<false, 0>')):
+             'K5 flat, ' + window_build(0, False))):
         ms_, plain, b, n, e = sno[key]
         check(n > 0, 'phase 15 never launched %s' % what)
-        source = 'mbvh_walk.cu' if key == 'k1' else 'mbvh_walk_window.cu'
+        source = 'mbvh_walk.cu' if key == 'k1' \
+            else window_source(1 if key == 'k3' else 0)
         entries.append(dict({
             'name': name, 'variant': what,
             'phase': '15, SNO-like flat table',
@@ -1788,7 +1830,7 @@ def main():
     print('build: %s in %.1f s' % (os.path.relpath(path, ROOT),
                                    time.time() - t0))
     ptxas = ptxas_summary(log)
-    check(len(ptxas) == 8, 'ptxas reported %d of 8 kernel instantiations'
+    check(len(ptxas) == 8, 'ptxas reported %d of 8 kernel builds'
           % len(ptxas))
     for name, what in sorted(ptxas.items()):
         print('  ptxas: %s: %s' % (name, what))
@@ -1913,6 +1955,7 @@ def main():
             werr[od_slots] = max(werr[od_slots], compare_window(
                 tables, 6, od_slots, 0, what + ', axis-parallel rays',
                 state=axis_state(tables, od_slots, dev)))
+    print_k5_grid('full demo', gg.geom)
     wms = {}
     for key in WINDOW_KEYS:
         od_slots, prune = key_parts(key)

@@ -141,4 +141,15 @@ def library():
         i, i, p,                     # rbase, rcount, root_lohi
         i, p,                        # prune, nactive counter (or null)
         p]                           # stream
+    lib.mbvh_walk_window_k5.restype = i
+    lib.mbvh_walk_window_k5.argtypes = [
+        p, p, i, i,                  # rows, state pointers, nkeys, n
+        f, i, i, i,                  # sq, depth, instanced, iters
+        i, i,                        # prune, persistent blocks
+        p, p,                        # queue word, nactive (or null)
+        p]                           # stream
+    lib.mbvh_walk_window_k5_grid.restype = i
+    lib.mbvh_walk_window_k5_grid.argtypes = [
+        i, ctypes.POINTER(i),        # instanced, blocks (out)
+        ctypes.POINTER(i)]           # warps a block (out)
     return lib

@@ -7,11 +7,13 @@
 //   mbvh_walk_window.cu  walk_window_kernel<INSTANCED, OD_SLOTS>:
 //                        one warp runs n_iters iterations of a lane whose
 //                        state lives in device memory across launches,
-//                        with the on-deck drain-restart (K3, K4) or
-//                        without it (K5, OD_SLOTS = 0), pruning or not
-//                        (K6, a run-time flag).
+//                        with the on-deck drain-restart (K3, K4);
+//   mbvh_walk_window_k5.cu  walk_window_k5_kernel<INSTANCED>: the same
+//                        window without on-deck slots (K5), persistent
+//                        warps over a lane queue.
+// Every window prunes or not (K6, a run-time flag).
 //
-// Both replace the TPU kernel body `_make_kernel` of
+// All replace the TPU kernel body `_make_kernel` of
 // chroma_tpu/ops/mbvh_pallas.py, whose semantics they keep step for
 // step: nearest-first pops on 16-bit quantized entry distances, a level
 // is live while its nearest pending code can still beat
@@ -93,8 +95,9 @@ constexpr float FLT_EPS = 1.1920929e-07f;
 // Threads that walk one ray: a whole warp.
 constexpr int G = 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-// Threads a block: 4 rays (a block's slot frees when its longest walk
-// ends, so small blocks waste less at the tail).
+// Threads a block of the one-launch-per-ray kernels (K1-K4): 4 rays (a
+// block's slot frees when its longest walk ends, so small blocks waste
+// less at the tail).
 constexpr int BLOCK = 128;
 // Blocks an SM must hold at once (__launch_bounds__): 8 x 128 threads
 // cap a thread at 64 registers, so 32 warps, 32 rays, walk on each SM at

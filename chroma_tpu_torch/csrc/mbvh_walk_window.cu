@@ -1,22 +1,21 @@
-// Walker window: n_iters MBVH walk iterations per lane, one warp per
-// lane, with or without the on-deck drain-restart cascade.
+// Walker window with the on-deck drain-restart cascade: n_iters MBVH
+// walk iterations per lane, one warp per lane.
 //
-// Replaces the window variants of the TPU walker kernel of
+// Replaces the on-deck window variants of the TPU walker kernel of
 // chroma_tpu/ops/mbvh_pallas.py (`_make_kernel`, launched per iteration
 // by `walk_iter`, :557-654): K3 (ondeck, od_slots = 1, :405-513), K4
-// (od_slots = 2, :411-433 and :509-512), K5 (ondeck=False: the fused
-// driver's window when the on-deck path is off or `service_frac` is
-// set; a drained walk idles until the service pass reseeds it) and K6
-// (do_prune=False on any of them, :352-357: a level stays live while
-// any child is pending).  OD_SLOTS = 0 is K5; K6 is the run-time flag
-// `prune`, which changes one select in `pop` (a template flag would
-// double the six builds for it).  The TPU driver calls
-// the kernel once per iteration with the row gather outside it; here
-// one launch runs a whole service window of n_iters iterations and each
-// warp reads its own lane's rows.  What one iteration computes is
-// exactly `walk_iter`: the row popped last is processed and the next
-// child popped (mbvh_walk_core.cuh, which states the group design);
-// with on-deck slots (OD_SLOTS > 0), in the iteration a walk drains,
+// (od_slots = 2, :411-433 and :509-512), and K6 (do_prune=False,
+// :352-357: a level stays live while any child is pending) on either,
+// the run-time flag `prune`, which changes one select in `pop` (a
+// template flag would double the builds for it).  The window without
+// on-deck slots (K5, ondeck=False) and K6 on it have their own kernel,
+// mbvh_walk_window_k5.cu.  The TPU driver calls the kernel once per
+// iteration with the row gather outside it; here one launch runs a whole
+// service window of n_iters iterations and each warp reads its own
+// lane's rows.  What one iteration computes is exactly `walk_iter`: the
+// row popped last is processed and the next child popped
+// (mbvh_walk_core.cuh, which states the group design); in the iteration
+// a walk drains,
 //   * its results (distance, normal, triangle, material) are parked in
 //     `park` (pad bit 1), or with a second slot, when `park` is taken,
 //     in `park2` (pad bit 4);
@@ -27,24 +26,21 @@
 //     costs no extra iteration; the instance registers ride through;
 //   * a walk that drains with no on-deck ray left sets pad bit 2.
 //
-// Lane state lives in device memory across launches.  The pending codes
-// `tcodes` are lanes-first, [n][S][64] int32 (S = depth - 1): one level
-// of one lane is 64 contiguous words, so the warp of a lane loads and
-// stores a level as two 128-byte accesses (thread t: slots t, t + 32).
-// The lane-minor [S][64][n] layout of the one-thread-per-lane kernel
-// would cost 32 sectors a warp access here.  The layout is the port's
-// window state layout everywhere (ops/mbvh_walk.py `window_layout`: the
-// plain version and the service pass in ops/fused.py carry it), not a
-// transpose in the wrapper, which would move every code twice more per
-// launch.  The codes stay int32, not u16: the plain version and the
-// service pass do int32 arithmetic on them (torch's uint16 support on
-// the CPU is partial).  Every other field stays field-major and
-// lane-minor ([k][n], word w of lane i at w * n + i) and is read once
-// per warp: all 32 threads read one address (a broadcast) and thread 0
-// stores it, but the normal and the instance rotation, which thread k
-// holds component k of.  The Python wrapper (chroma_tpu_torch/ops/mbvh_walk.py,
-// `walk_window_cuda`) passes the fields as an array of device pointers
-// in the order of the enum below, which is KERNEL_STATE_KEYS there.
+// Lane state lives in device memory across launches (mbvh_walk_state.cuh).
+// The pending codes `tcodes` are lanes-first, [n][S][64] int32 (S =
+// depth - 1): one level of one lane is 64 contiguous words, so the warp
+// of a lane loads and stores a level as two 128-byte accesses (thread t:
+// slots t, t + 32).  The lane-minor [S][64][n] layout of the
+// one-thread-per-lane kernel would cost 32 sectors a warp access here.
+// The layout is the port's window state layout everywhere
+// (ops/mbvh_walk.py `window_layout`: the plain version and the service
+// pass in ops/fused.py carry it), not a transpose in the wrapper, which
+// would move every code twice more per launch.  The codes stay int32,
+// not u16: the plain version and the service pass do int32 arithmetic on
+// them (torch's uint16 support on the CPU is partial).  Every other field
+// is lane-minor and read once per warp: all 32 threads read one address
+// (a broadcast) and thread 0 stores it, but the normal and the instance
+// rotation, which thread k holds component k of.
 //
 // What bounds it on an H100 (counted in chip_smoke.py from the code and
 // the run's own walks): bytes.  A 17-iteration window over 65,536 full-
@@ -54,63 +50,29 @@
 // GFLOP, so the bound is ~0.042 ms at 3.35 TB/s; the kernel runs at
 // about 6% of it (PERF.md), bound by latency and issue like the
 // closest-hit kernel.  A lane that has drained with no on-deck ray left
-// is a fixed point: its warp stops iterating and stores nothing.  K5
-// reads the ray but never writes it (the TPU kernel's read-only `rays`);
-// its window walks 0.60x K3's lane-iterations (~131 MB, bound ~0.039
-// ms) and takes 0.57-0.62x K3's time; K6 walks 6-15% more.
+// is a fixed point: its warp stops iterating and stores nothing.  K6
+// walks 6-15% more lane-iterations.
 //
 // Active lane-iterations (the JAX driver's `collect_stats`, stats[3]):
 // with `nactive` non-null, each warp counts the iterations after which
 // its walk is active (a restarted walk included) and adds the count to
 // *nactive with one atomicAdd at the end of the launch.
 //
-// Builds: <INSTANCED, OD_SLOTS>, OD_SLOTS 0, 1 or 2, each holding
-// MAX_SLOTS pending levels as the closest-hit kernel.  Registers: capped at 64 by
+// Builds: <INSTANCED, OD_SLOTS>, OD_SLOTS 1 or 2, each holding MAX_SLOTS
+// pending levels as the closest-hit kernel.  Registers: capped at 64 by
 // __launch_bounds__(BLOCK, MIN_BLOCKS), as the closest-hit kernel.
 // ptxas (sm_90a, CUDA 12.8; chip_smoke.py phase 2), stack frame and
-// spill stores / loads: <false, 0> 64 B, 92 B / 100 B; <false, 1> 96 B,
-// 144 B / 156 B; <false, 2> 96 B, 124 B / 148 B; <true, 0> 136 B, 192 B
-// / 212 B; <true, 1> 160 B, 272 B / 304 B; <true, 2> 168 B, 252 B /
-// 312 B (the prune flag and the active count added 8-24 B of spills to
-// the on-deck builds).  Spills of the cap: uncapped, the first
-// warp-per-ray build ran at 98-128 registers with 0-8 B of stack, and
-// slower.
+// spill stores / loads: <false, 1> 96 B, 144 B / 156 B; <false, 2> 96 B,
+// 124 B / 148 B; <true, 1> 160 B, 272 B / 304 B; <true, 2> 168 B, 252 B
+// / 312 B (the prune flag and the active count added 8-24 B of spills).
+// Spills of the cap: uncapped, the first warp-per-ray build ran at
+// 98-128 registers with 0-8 B of stack, and slower.
 #include "mbvh_walk_core.cuh"
+#include "mbvh_walk_state.cuh"
 
 namespace {
 
 using namespace mbvh;
-
-enum Key {
-    ORG, DIR, INV, NOID, LHT, TCODES, BASES, PTR, ACT, LVL, TRI, MAT,
-    MIN_DIST, NRM, TBASE, PAD,
-    IROT, IORG, IDIR, IINV, INOID,                          // instanced
-    OD_ORG, OD_DIR, OD_VALID, OD_LHT,                       // on-deck 1
-    PARK_DIST, PARK_NRM, PARK_TRI, PARK_MAT,
-    OD2_ORG, OD2_DIR, OD2_VALID, OD2_LHT,                   // on-deck 2
-    PARK2_DIST, PARK2_NRM, PARK2_TRI, PARK2_MAT,
-    NKEYS
-};
-
-struct State {
-    void* p[NKEYS];
-};
-
-// (field, word) of lane i in a lane-minor [k][n] array
-struct Lanes {
-    const State& st;
-    size_t n;
-    size_t i;
-    __device__ float& f(int key, int w = 0) const {
-        return static_cast<float*>(st.p[key])[w * n + i];
-    }
-    __device__ int32_t& s(int key, int w = 0) const {
-        return static_cast<int32_t*>(st.p[key])[w * n + i];
-    }
-    __device__ uint8_t& b(int key) const {
-        return static_cast<uint8_t*>(st.p[key])[i];
-    }
-};
 
 // Park the walk's results (thread k < 3 stores normal component k,
 // thread 0 the rest).
@@ -131,6 +93,8 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
                    float sq, int depth, int n_iters, uint32_t rbase,
                    int rcount, const float* __restrict__ root_lohi,
                    bool prune, unsigned long long* __restrict__ nactive) {
+    static_assert(OD_SLOTS == 1 || OD_SLOTS == 2,
+                  "the window without on-deck slots is mbvh_walk_window_k5");
     // one warp per lane: a warp past the ragged edge leaves whole
     const long long gi = group_index();
     if (gi >= n) return;
@@ -180,7 +144,7 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
         }
     }
     int32_t pad = L.s(PAD);
-    const bool od_valid = OD_SLOTS >= 1 && L.b(OD_VALID) != 0;
+    const bool od_valid = L.b(OD_VALID) != 0;
     const bool od2_valid = OD_SLOTS == 2 && L.b(OD2_VALID) != 0;
 
     bool changed = false;
@@ -190,7 +154,7 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
         const bool parked2 = OD_SLOTS == 2 && (pad & 4) != 0;
         if (!act && lvl < 0) {
             // drained: nothing changes unless a swap is due
-            const bool due = OD_SLOTS >= 1 && (pad & 2) != 0
+            const bool due = (pad & 2) != 0
                 && ((!parked && od_valid)
                     || (OD_SLOTS == 2 && parked && !parked2 && od2_valid));
             if (!due) break;
@@ -202,10 +166,6 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
             process_row<INSTANCED>(rows + (size_t)ptr * ROW_WIDTH, ray, lht,
                                    sq, depth, lvl, hit, inst, pend);
         act = pop(pend, nslots, hit.min_dist, sq, prune, &lvl, &ptr);
-        if (OD_SLOTS == 0) {
-            nact += act;
-            continue;
-        }
 
         // ---- drain-restart cascade ----
         const bool done = (pad & 2) != 0 || (act_in && !act);
@@ -261,18 +221,16 @@ walk_window_kernel(const uint32_t* __restrict__ rows, State st, int n,
     if (t < 3) L.f(NRM, t) = hit.nrm;
     if (INSTANCED && t < 9) L.f(IROT, t) = inst.irot;
     if (t != 0) return;
-    if (OD_SLOTS >= 1) {
-        // only a swap changes the ray
+    // only a swap changes the ray
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-            L.f(ORG, k) = ray.o[k];
-            L.f(DIR, k) = ray.d[k];
-            L.f(INV, k) = ray.inv[k];
-            L.f(NOID, k) = ray.noid[k];
-        }
-        L.s(LHT) = lht;
-        L.s(PAD) = pad;
+    for (int k = 0; k < 3; ++k) {
+        L.f(ORG, k) = ray.o[k];
+        L.f(DIR, k) = ray.d[k];
+        L.f(INV, k) = ray.inv[k];
+        L.f(NOID, k) = ray.noid[k];
     }
+    L.s(LHT) = lht;
+    L.s(PAD) = pad;
     L.s(PTR) = (int32_t)ptr;
     L.b(ACT) = act ? 1 : 0;
     L.s(LVL) = lvl;
@@ -315,9 +273,7 @@ void launch(const Args& a, cudaStream_t stream) {
 
 template <bool INSTANCED>
 void launch_slots(const Args& a, int od_slots, cudaStream_t stream) {
-    if (od_slots == 0)
-        launch<INSTANCED, 0>(a, stream);
-    else if (od_slots == 1)
+    if (od_slots == 1)
         launch<INSTANCED, 1>(a, stream);
     else
         launch<INSTANCED, 2>(a, stream);
@@ -330,7 +286,8 @@ void launch_slots(const Args& a, int od_slots, cudaStream_t stream) {
 // registers of a flat geometry, the on-deck slots past od_slots);
 // `rows`, `root_lohi` and `nactive` (null: no count; else one
 // unsigned 64-bit counter the launch adds to) are device pointers,
-// `stream` the CUDA stream to launch on; od_slots 0 (K5), 1 or 2; the
+// `stream` the CUDA stream to launch on; od_slots 1 or 2 (K5, without
+// on-deck slots, is mbvh_walk_window_k5); the
 // tree's depth at most MAX_SLOTS + 1.  Returns the cudaError_t of the
 // launch.
 extern "C" int mbvh_walk_window(const void* rows, void* const* state,
@@ -341,7 +298,7 @@ extern "C" int mbvh_walk_window(const void* rows, void* const* state,
     if (nkeys != NKEYS) return (int)cudaErrorInvalidValue;
     if (n <= 0 || n_iters <= 0) return (int)cudaSuccess;
     if (depth < 1 || depth - 1 > MAX_SLOTS) return (int)cudaErrorInvalidValue;
-    if (od_slots < 0 || od_slots > 2) return (int)cudaErrorInvalidValue;
+    if (od_slots < 1 || od_slots > 2) return (int)cudaErrorInvalidValue;
     Args a;
     a.rows = static_cast<const uint32_t*>(rows);
     for (int k = 0; k < NKEYS; ++k) a.st.p[k] = state[k];

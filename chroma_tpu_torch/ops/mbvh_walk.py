@@ -23,8 +23,10 @@ lane's on-deck ray within the same iteration; without them
 reseeds it.  ``prune=False`` (K6, on any of them) keeps a level live
 while any child is pending, as the TPU kernel's ``do_prune=False``.
 
-* ``walk_window_cuda`` launches csrc/mbvh_walk_window.cu: one warp per
-  lane, the lane state in device memory across launches.
+* ``walk_window_cuda`` launches csrc/mbvh_walk_window.cu (K3, K4: one
+  warp per lane) or, without on-deck slots, csrc/mbvh_walk_window_k5.cu
+  (K5: persistent warps over a queue of the lanes); the lane state
+  lives in device memory across launches.
 * ``walk_window_plain`` is the same in vectorized torch, stepping only
   the lanes whose state can still change (a drained lane with no
   on-deck ray left is a fixed point).  Bit-equal to the kernel.
@@ -44,6 +46,7 @@ field word w of lane i at w * n + i), read once per warp.
 state (transposed, biased int16 codes), in numpy.
 """
 import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -65,8 +68,8 @@ KERNEL_ROW_WIDTH = 424
 KERNEL_MAX_DEPTH = 12     # MAX_SLOTS + 1 in csrc/mbvh_walk_core.cuh
 # walker-state entries a closest-hit walk iteration never changes
 _RAY_KEYS = ('org', 'dir', 'inv', 'noid', 'lht')
-# the window kernel's state fields, in the order of enum Key in
-# csrc/mbvh_walk_window.cu
+# the window kernels' state fields, in the order of enum Key in
+# csrc/mbvh_walk_state.cuh
 KERNEL_STATE_KEYS = (
     'org', 'dir', 'inv', 'noid', 'lht', 'tcodes', 'bases', 'ptr', 'act',
     'lvl', 'tri', 'mat', 'min_dist', 'nrm', 'tbase', 'pad',
@@ -739,12 +742,13 @@ def walk_window_plain(rows, W, n_iters, depth, instanced, sq, od_slots,
 
 def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
                      rbase, rcount, root_lohi, prune=True, nactive=None):
-    """Launch csrc/mbvh_walk_window.cu on CUDA tensors: ``n_iters``
-    window iterations over every lane of ``W``, in place.  ``W`` holds
-    the fields of ``state_fields(depth, instanced, od_slots)`` in
+    """Launch the window kernel on CUDA tensors: ``n_iters`` window
+    iterations over every lane of ``W``, in place.  ``W`` holds the
+    fields of ``state_fields(depth, instanced, od_slots)`` in
     ``window_layout``; ``rows`` (R, ROW_WIDTH) int32; ``root_lohi``
     (6 * BRANCH,) f32; ``sq`` the entry-code scale as a float32 value;
-    ``od_slots`` 0 (K5), 1 (K3) or 2 (K4); ``prune=False`` is K6.
+    ``od_slots`` 1 (K3) or 2 (K4) launch csrc/mbvh_walk_window.cu, 0
+    (K5) csrc/mbvh_walk_window_k5.cu; ``prune=False`` is K6.
     ``nactive``, a 0-d int64 tensor on the card, if given gets the
     window's active lane-iterations added."""
     from chroma_tpu_torch import _build
@@ -785,18 +789,54 @@ def walk_window_cuda(rows, W, n_iters, depth, instanced, sq, od_slots,
         ptrs.append(t.data_ptr())
     lib = _build.library()
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    counter = None if nactive is None else nactive.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mbvh_walk_window(
-            rows.data_ptr(), arr, len(ptrs), n, float(sq), int(depth),
-            int(bool(instanced)), int(od_slots), int(n_iters), int(rbase),
-            int(rcount), root_lohi.data_ptr(), int(bool(prune)),
-            None if nactive is None else nactive.data_ptr(), stream)
+        if od_slots == 0:
+            blocks, _ = _k5_grid(torch.cuda.current_device(),
+                                 bool(instanced))
+            # the lane queue's word (the C entry zeroes it on the stream)
+            queue = torch.empty(1, dtype=torch.int32, device=dev)
+            name = 'mbvh_walk_window_k5'
+            err = lib.mbvh_walk_window_k5(
+                rows.data_ptr(), arr, len(ptrs), n, float(sq), int(depth),
+                int(bool(instanced)), int(n_iters), int(bool(prune)), blocks,
+                queue.data_ptr(), counter, stream)
+        else:
+            name = 'mbvh_walk_window'
+            err = lib.mbvh_walk_window(
+                rows.data_ptr(), arr, len(ptrs), n, float(sq), int(depth),
+                int(bool(instanced)), int(od_slots), int(n_iters),
+                int(rbase), int(rcount), root_lohi.data_ptr(),
+                int(bool(prune)), counter, stream)
     if err != 0:
-        raise RuntimeError('mbvh_walk_window launch failed: cudaError %d'
-                           % err)
+        raise RuntimeError('%s launch failed: cudaError %d' % (name, err))
     walk_window_launches[window_key(od_slots, prune)].add()
     return W
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_grid(device_index, instanced):
+    """(blocks, warps a block) of the K5 window kernel's persistent grid
+    on CUDA device ``device_index``: SMs x the blocks an SM holds."""
+    from chroma_tpu_torch import _build
+    blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().mbvh_walk_window_k5_grid(
+            int(instanced), ctypes.byref(blocks), ctypes.byref(warps))
+    if err != 0:
+        raise RuntimeError('mbvh_walk_window_k5_grid failed: cudaError %d'
+                           % err)
+    return blocks.value, warps.value
+
+
+def k5_persistent_warps(tables):
+    """Warps of the K5 window kernel's persistent grid on the tables'
+    card.  A launch over fewer lanes runs one warp a lane."""
+    with torch.cuda.device(tables.mbvh_rows.device):
+        blocks, warps = _k5_grid(torch.cuda.current_device(),
+                                 bool(tables.mbvh_instanced))
+    return blocks * warps
 
 
 # ---- the JAX walker state, both ways (numpy only) ------------------------

@@ -97,6 +97,13 @@ def _tables(name, dev):
     if name == 'sphere24':
         return pack_geometry(host.mesh_geometry(
             host.make.sphere(50.0, nsteps=24)), dev)
+    if name in ('depth1', 'depth2'):
+        # 48 triangles are one cluster row; 96 a root and two clusters
+        nsteps = 6 if name == 'depth1' else 8
+        g = pack_geometry(host.mesh_geometry(
+            host.make.sphere(50.0, nsteps=nsteps)), dev)
+        assert int(g.mbvh_depth) == int(name[-1])
+        return g
     if name == 'ties':
         return pack_geometry(host.tie_geometry(), dev)
     if name == 'ties_instanced':
@@ -309,3 +316,124 @@ def test_eval_pdf_and_tracking_on_card(dev):
                       driver='steps')
     for key, v in stepped.state.items():
         assert torch.equal(tracked.state[key], v), key
+
+
+# ---- the window without on-deck slots (K5) and K6 on it ----------------
+
+def _assert_state_equal(k, p, what):
+    for key in k:
+        a, b = k[key], p[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (what, key)
+
+
+def _k5_window(g, k, p, iters, prune):
+    """One window of ``iters`` iterations, the K5 kernel on ``k`` and the
+    plain version on ``p``: one launch counted, every state field bit-equal
+    and the active lane-iterations equal.  Returns the count."""
+    seed_args = mbvh_walk.root_seed_args(g)
+    counter = mbvh_walk.walk_window_launches[mbvh_walk.window_key(0, prune)]
+    ck = torch.zeros((), dtype=torch.int64, device=k['act'].device)
+    cp = torch.zeros_like(ck)
+    before = counter.launches
+    tmbvh.walk_window(g, k, iters, 0, *seed_args, prune=prune, nactive=ck)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    tmbvh.walk_window(g, p, iters, 0, *seed_args, prune=prune, plain=True,
+                      nactive=cp)
+    _assert_state_equal(k, p, iters)
+    assert int(ck) == int(cp), iters
+    return int(ck)
+
+
+def _k5_state(g, n, seed):
+    return mbvh_walk.random_window_state(
+        g.mbvh_rows, int(g.mbvh_depth), bool(g.mbvh_instanced),
+        tmbvh.tquant_scale(g), n, 0, seed)
+
+
+K5_CASES = ([(name, 256) for name in ('sphere24', 'tiny', 'ties',
+                                      'ties_instanced', 'depth1', 'depth2')]
+            + [(name, n) for name in ('sphere24', 'tiny')
+               for n in GROUP_EDGES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('prune', [True, False])
+@pytest.mark.parametrize('name,n', K5_CASES)
+def test_k5_kernel_matches_plain(dev, name, n, prune):
+    """K5 (csrc/mbvh_walk_window_k5.cu) against the plain window: one
+    iteration, a service window of 17, then a long window in which every
+    walk drains; ragged widths, the tie scenes, depth-1 and depth-2
+    trees, both prune flags."""
+    g = _tables(name, dev)
+    k = _k5_state(g, n, n + 7)
+    p = _clone_state(k)
+    for iters in (1, 17, 3000):
+        _k5_window(g, k, p, iters, prune)
+    assert not k['act'].any() and (k['lvl'] < 0).all()
+    assert (k['tri'] >= 0).any() or n < 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('prune', [True, False])
+@pytest.mark.parametrize('delta', [-1, 1])
+@pytest.mark.parametrize('name', ['sphere24', 'tiny'])
+def test_k5_kernel_around_the_persistent_grid(dev, name, delta, prune):
+    """One lane fewer and one more than the persistent grid has warps:
+    every warp takes one lane, or one warp takes a second."""
+    g = _tables(name, dev)
+    warps = mbvh_walk.k5_persistent_warps(g)
+    assert warps >= torch.cuda.get_device_properties(
+        dev).multi_processor_count * 16
+    n = warps + delta
+    k = _k5_state(g, n, 41)
+    p = _clone_state(k)
+    for iters in (1, 17):
+        _k5_window(g, k, p, iters, prune)
+
+
+def _drain(g, W, prune):
+    tmbvh.walk_window(g, W, 3000, 0, *mbvh_walk.root_seed_args(g),
+                      prune=prune, plain=True)
+    assert not W['act'].any() and (W['lvl'] < 0).all()
+    return W
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('prune', [True, False])
+@pytest.mark.parametrize('name', ['sphere24', 'tiny', 'depth1'])
+def test_k5_kernel_leaves_drained_lanes_alone(dev, name, prune):
+    """Every lane drained: a window changes no byte of the state and
+    counts no active iteration."""
+    g = _tables(name, dev)
+    k = _drain(g, _k5_state(g, 1001, 9), prune)
+    before = _clone_state(k)
+    p = _clone_state(k)
+    for iters in (1, 17):
+        assert _k5_window(g, k, p, iters, prune) == 0
+        _assert_state_equal(k, before, 'drained')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('prune', [True, False])
+@pytest.mark.parametrize('name', ['sphere24', 'tiny', 'ties_instanced'])
+def test_k5_kernel_mixed_lanes(dev, name, prune):
+    """A third of the lanes drained at entry, the rest walking or seeded
+    inactive: bit-equal to plain at n_iters 1 and 17, and the drained
+    lanes untouched."""
+    g = _tables(name, dev)
+    n = 1001
+    fresh = _k5_state(g, n, 13)
+    done = _drain(g, _clone_state(fresh), prune)
+    lanes = torch.arange(n, device=dev) % 3 == 0
+    k = mbvh_walk.window_layout({
+        key: torch.where(lanes.view((n,) + (1,) * (v.dim() - 1)),
+                         done[key], v) for key, v in fresh.items()})
+    start = _clone_state(k)
+    p = _clone_state(k)
+    for iters in (1, 17):
+        _k5_window(g, k, p, iters, prune)
+    for key, v in start.items():
+        assert torch.equal(k[key][lanes], v[lanes]), key

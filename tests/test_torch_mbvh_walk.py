@@ -216,4 +216,5 @@ def test_nvcc_flags_keep_ieee_floats():
     assert '--use_fast_math' not in flags
     assert _build.sources() == [
         _build.os.path.join(_build.CSRC_DIR, name)
-        for name in ('mbvh_walk.cu', 'mbvh_walk_window.cu')]
+        for name in ('mbvh_walk.cu', 'mbvh_walk_window.cu',
+                     'mbvh_walk_window_k5.cu')]

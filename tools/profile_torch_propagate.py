@@ -45,7 +45,8 @@ from chroma_tpu_torch.ops import fused  # noqa: E402
 
 SWEEP_WIDTHS = (32768, 65536, 131072)
 SWEEP_SERVICE_EVERY = (8, 17, 32)
-_WALKERS = ('closest_hit_kernel', 'walk_window_kernel')
+_WALKERS = ('closest_hit_kernel', 'walk_window_kernel',
+            'walk_window_k5_kernel')
 
 
 def _driver_kw(args):
