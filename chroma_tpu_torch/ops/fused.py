@@ -46,7 +46,7 @@ Not carried over (TPU scheduling, no change to what is computed):
 """
 import torch
 
-from chroma_tpu_torch import event
+from chroma_tpu_torch import event, tracing
 from chroma_tpu_torch.ops import mbvh, mbvh_walk
 from chroma_tpu_torch.ops.propagate import (NDRAWS, TERMINAL, i32,
                                             physics_update)
@@ -561,10 +561,13 @@ def propagate_fused(state, tables, draws, max_steps=100, width=None,
     def static_stage(lane, next_ptr, targets):
         while True:
             nhold = ch.per_chain(lane['holding'])
-            if not more(*torch.stack([nhold, next_ptr]).tolist(), targets):
+            with tracing.span('pass.wait'):
+                counts = torch.stack([nhold, next_ptr]).tolist()
+            if not more(*counts, targets):
                 return lane, next_ptr
             W = lane['W']
-            mbvh.walk_window(tables, W, service_every, od, *root, **walk)
+            with tracing.span('pass.walk'):
+                mbvh.walk_window(tables, W, service_every, od, *root, **walk)
             holding = lane['holding']
             ready = (holding & ~W['act']).sum()
             if od:
@@ -573,21 +576,24 @@ def propagate_fused(state, tables, draws, max_steps=100, width=None,
                 ready = ready + ((W['pad'] & 4) != 0).sum()
             stats[:3] += torch.stack([torch.ones_like(ready), ready,
                                       holding.sum() * service_every])
-            if od:
-                next_ptr = _service_ondeck(lane, pool, next_ptr, *svc, od,
-                                           use_weights, ch)
-            else:
-                next_ptr = _service(lane, pool, next_ptr, *svc, use_weights,
-                                    ch)
+            with tracing.span('pass.service'):
+                if od:
+                    next_ptr = _service_ondeck(lane, pool, next_ptr, *svc,
+                                               od, use_weights, ch)
+                else:
+                    next_ptr = _service(lane, pool, next_ptr, *svc,
+                                        use_weights, ch)
 
     def dynamic_stage(lane, next_ptr, targets):
         while True:
             W = lane['W']
-            mbvh.walk_window(tables, W, 1, 0, *root, **walk)
+            with tracing.span('pass.walk'):
+                mbvh.walk_window(tables, W, 1, 0, *root, **walk)
             holding = lane['holding']
-            nhold, ndone, ptrs = torch.stack([
-                ch.per_chain(holding), ch.per_chain(holding & ~W['act']),
-                next_ptr]).tolist()
+            with tracing.span('pass.wait'):
+                nhold, ndone, ptrs = torch.stack([
+                    ch.per_chain(holding), ch.per_chain(holding & ~W['act']),
+                    next_ptr]).tolist()
             if not more(nhold, ptrs, targets):
                 return lane, next_ptr
             stats[2] += sum(nhold)
@@ -598,8 +604,9 @@ def propagate_fused(state, tables, draws, max_steps=100, width=None,
             stats[0] += 1
             stats[1] += sum(d for d, u in zip(ndone, due) if u)
             serve = torch.tensor(due, device=dev)[ch.cid]
-            next_ptr = _service(lane, pool, next_ptr, *svc, use_weights, ch,
-                                serve)
+            with tracing.span('pass.service'):
+                next_ptr = _service(lane, pool, next_ptr, *svc, use_weights,
+                                    ch, serve)
 
     stage = dynamic_stage if service_frac is not None else static_stage
     if min(w_c) * ch.n > DRAIN_MIN_WIDTH:

@@ -17,7 +17,7 @@ photons the step loop gives, bit for bit, once put back in order
 import numpy as np
 import torch
 
-from chroma_tpu_torch import event
+from chroma_tpu_torch import event, tracing
 from chroma_tpu_torch.ops.propagate import (NDRAWS, TERMINAL, alive_mask,
                                             make_photon_state,
                                             propagate_step)
@@ -128,16 +128,21 @@ def propagate(state, tables, draws, max_steps=100, scatter_first=0,
     while steps < max_steps:
         if sort_every and steps % sort_every == 0:
             state, _ = sort_photons(state, *box)
-        live = torch.nonzero(alive_mask(state['flags'])).squeeze(1)
+        with tracing.span('step.live'):     # waits for the last step
+            live = torch.nonzero(alive_mask(state['flags'])).squeeze(1)
         if live.numel() == 0:
             break
-        u = draws()[state['index'][live]]
-        sub = {k: v[live] for k, v in state.items()}
+        tracing.count('step.live_photons', live.numel())
+        with tracing.span('step.draw'):
+            u = draws()[state['index'][live]]
+        with tracing.span('step.gather'):
+            sub = {k: v[live] for k, v in state.items()}
         sub = propagate_step(sub, tables, u,
                              scatter_first if steps == 0 else 0,
                              use_weights=use_weights)
-        for k, v in sub.items():
-            state[k] = state[k].index_copy(0, live, v)
+        with tracing.span('step.scatter'):
+            for k, v in sub.items():
+                state[k] = state[k].index_copy(0, live, v)
         steps += 1
     return state, steps
 

@@ -18,6 +18,7 @@ from chroma_tpu_torch import generator
 from chroma_tpu_torch import itertoolset
 from chroma_tpu_torch import gpu
 from chroma_tpu_torch import parallel
+from chroma_tpu_torch import tracing
 from chroma_tpu_torch.device import resolve
 from chroma_tpu_torch.ops import daq as daq_ops
 from chroma_tpu_torch.ops import photon as photon_ops
@@ -144,14 +145,16 @@ class Simulation(object):
     def _simulate_batch(self, batch_events, keep_photons_beg=False,
                         keep_photons_end=False, keep_hits=True,
                         keep_flat_hits=True, run_daq=False, max_steps=100):
-        batch_photons = event.Photons.join(
-            [ev.photons_beg for ev in batch_events])
-        batch_bounds = np.cumsum(np.concatenate(
-            [[0], [len(ev.photons_beg) for ev in batch_events]]))
+        with tracing.span('simulate.join'):
+            batch_photons = event.Photons.join(
+                [ev.photons_beg for ev in batch_events])
+            batch_bounds = np.cumsum(np.concatenate(
+                [[0], [len(ev.photons_beg) for ev in batch_events]]))
 
-        gpu_photons = gpu.GPUPhotons(batch_photons, self.device,
-                                     copy_triangles=False,
-                                     copy_weights=False)
+        with tracing.span('simulate.upload'):
+            gpu_photons = gpu.GPUPhotons(batch_photons, self.device,
+                                         copy_triangles=False,
+                                         copy_weights=False)
         is_detector = self.is_detector
         nch = self.gpu_geometry.nchannels if is_detector else 0
         channels = None
@@ -165,53 +168,61 @@ class Simulation(object):
                                  "driver='fused' only, got %r"
                                  % (self.mesh.size, self.driver))
             n = len(gpu_photons)
-            state, _ = parallel.pad_to_multiple(gpu_photons.state,
-                                                self.mesh.size)
-            state, channels = parallel.propagate_and_daq_sharded(
-                state, self.gpu_geometry, self.rng_states.next(),
-                self.mesh, nch, max_steps=max_steps,
-                nevents=len(batch_events), **self.driver_options)
-            state = photon_ops.unsort_photons(state)
-            gpu_photons.state = {k: v[:n] for k, v in state.items()}
+            with tracing.span('simulate.propagate'):
+                state, _ = parallel.pad_to_multiple(gpu_photons.state,
+                                                    self.mesh.size)
+                state, channels = parallel.propagate_and_daq_sharded(
+                    state, self.gpu_geometry, self.rng_states.next(),
+                    self.mesh, nch, max_steps=max_steps,
+                    nevents=len(batch_events), **self.driver_options)
+                state = photon_ops.unsort_photons(state)
+                gpu_photons.state = {k: v[:n] for k, v in state.items()}
             tracking = None
         else:
-            tracking = self._propagate(gpu_photons, max_steps=max_steps,
-                                       track=self.photon_tracking)
+            with tracing.span('simulate.propagate'):
+                tracking = self._propagate(gpu_photons, max_steps=max_steps,
+                                           track=self.photon_tracking)
 
         if keep_photons_end:
             batch_photons_end = gpu_photons.get()
         if is_detector and (keep_hits or keep_flat_hits):
-            batch_hits = gpu_photons.get_flat_hits(self.gpu_geometry)
+            with tracing.span('simulate.hits'):
+                batch_hits = gpu_photons.get_flat_hits(self.gpu_geometry)
         if is_detector and run_daq and channels is None:
             # one DAQ over the whole batch, into per-event channel blocks
             # keyed by evidx
-            u = daq_ops.daq_draws(self.rng_states.generator, 1,
-                                  len(gpu_photons))
-            channels = daq_ops.run_daq(
-                gpu_photons.state, self.gpu_geometry.geom,
-                self.gpu_geometry.det, u, nch, nevents=len(batch_events))
+            with tracing.span('simulate.daq'):
+                u = daq_ops.daq_draws(self.rng_states.generator, 1,
+                                      len(gpu_photons))
+                channels = daq_ops.run_daq(
+                    gpu_photons.state, self.gpu_geometry.geom,
+                    self.gpu_geometry.det, u, nch,
+                    nevents=len(batch_events))
 
         for i, (batch_ev, (start, end)) in enumerate(zip(
                 batch_events, zip(batch_bounds[:-1], batch_bounds[1:]))):
-            if not keep_photons_beg:
-                batch_ev.photons_beg = None
-            if tracking is not None:
-                batch_ev.photon_tracks = _photon_tracks(tracking, start, end)
-            if keep_photons_end:
-                batch_ev.photons_end = batch_photons_end[start:end]
-            if is_detector and (keep_hits or keep_flat_hits):
-                ev_hits = batch_hits[batch_hits.evidx == i]
-                if keep_hits:
-                    batch_ev.hits = {
-                        int(c): ev_hits[ev_hits.channel == c]
-                        for c in np.unique(ev_hits.channel)}
-                if keep_flat_hits:
-                    batch_ev.flat_hits = ev_hits
-            if is_detector and run_daq:
-                sl = slice(i * nch, (i + 1) * nch)
-                batch_ev.channels = gpu.GPUChannels(
-                    channels['t'][sl], channels['q'][sl],
-                    channels['flags'][sl]).get()
+            # closed before the yield: a consumer's time is not the split's
+            with tracing.span('simulate.debatch'):
+                if not keep_photons_beg:
+                    batch_ev.photons_beg = None
+                if tracking is not None:
+                    batch_ev.photon_tracks = _photon_tracks(tracking, start,
+                                                            end)
+                if keep_photons_end:
+                    batch_ev.photons_end = batch_photons_end[start:end]
+                if is_detector and (keep_hits or keep_flat_hits):
+                    ev_hits = batch_hits[batch_hits.evidx == i]
+                    if keep_hits:
+                        batch_ev.hits = {
+                            int(c): ev_hits[ev_hits.channel == c]
+                            for c in np.unique(ev_hits.channel)}
+                    if keep_flat_hits:
+                        batch_ev.flat_hits = ev_hits
+                if is_detector and run_daq:
+                    sl = slice(i * nch, (i + 1) * nch)
+                    batch_ev.channels = gpu.GPUChannels(
+                        channels['t'][sl], channels['q'][sl],
+                        channels['flags'][sl]).get()
             yield batch_ev
 
     def simulate(self, iterable, keep_photons_beg=False,

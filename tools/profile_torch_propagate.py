@@ -10,7 +10,13 @@ CHROMA_TPU_CACHE says otherwise), propagates one isotropic 400 nm batch
 from the centre once to warm up, then once under ``torch.profiler`` and
 prints: wall time, the driver's step count or stats, the device time of
 the walker kernel against all device time, the device's idle share over
-the run, and the ten largest device kernels.
+the run, the ten largest device kernels, and the program's own spans
+(``chroma_tpu_torch.tracing``) with their count, total and self host ms:
+``step.live`` (the host waiting for the device) against ``step.draw``,
+``.gather``, ``.walk``, ``.physics``, ``.scatter`` (issuing a step) on
+the step loop, ``pass.wait`` against ``pass.walk`` and ``pass.service``
+on the lane-pool driver.  The profiler slows the host, so these host
+times are high against an unprofiled run.
 
 ``--eval-pdf`` profiles one ``Simulation.eval_pdf`` instead (the
 likelihood path: weighted, scatter-stratified propagation, DAQ at ndaq
@@ -40,7 +46,7 @@ os.environ.setdefault('CHROMA_TPU_CACHE',
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chroma_tpu_torch import benchmark, gpu  # noqa: E402
+from chroma_tpu_torch import benchmark, gpu, tracing  # noqa: E402
 from chroma_tpu_torch.ops import fused  # noqa: E402
 
 SWEEP_WIDTHS = (32768, 65536, 131072)
@@ -82,9 +88,11 @@ def sweep(gg, args, card):
 
 def report(prof, wall):
     """Device busy time, idle share, the walker kernels' share and the
-    ten largest device kernels of a profiled region of ``wall`` s."""
+    ten largest device kernels of a profiled region of ``wall`` s (not
+    the device-side copies of the program's span ranges)."""
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith('chroma_tpu_torch.')]
     total_us = sum(e.self_device_time_total for e in events)
     walk_us = sum(e.self_device_time_total for e in events
                   if any(name in e.key for name in _WALKERS))
@@ -94,6 +102,18 @@ def report(prof, wall):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print('  %8.1f ms  %6d calls  %s' % (e.self_device_time_total / 1e3,
                                             e.count, e.key[:90]))
+
+
+def report_spans(rec):
+    """Count, total and self host ms of each of the program's spans."""
+    totals = rec.totals()
+    print('program spans (host ms): count, total, self')
+    for name in sorted(totals):
+        n, total, own = totals[name]
+        print('  %-20s %7d %10.2f %10.2f' % (name, n, total / 1e6,
+                                             own / 1e6))
+    for name, n in sorted(rec.counts.items()):
+        print('  counter %s %d' % (name, n))
 
 
 def profile_eval_pdf(gg, card, nphotons=20000, nreps=2, ndaq=32):
@@ -174,7 +194,8 @@ def main():
     p = gpu.GPUPhotons(photons, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            tracing.recording() as rec:
         t0 = time.time()
         p.propagate(gg, rng, **kw)
         torch.cuda.synchronize()
@@ -184,6 +205,7 @@ def main():
              _stats_line(p, args.nphotons, args.width, args.service_every),
              wall, args.nphotons / wall))
     report(prof, wall)
+    report_spans(rec)
 
 
 if __name__ == '__main__':
