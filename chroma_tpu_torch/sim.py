@@ -42,6 +42,49 @@ def _photon_tracks(tracking, start, end):
     return [event.Photons.join(t) if t else event.Photons() for t in tracks]
 
 
+def _split_by(keys, n):
+    """Split rows by an integer key in [0, n) in one pass: ``(order,
+    bounds)``, where the rows of key k are ``order[bounds[k]:bounds[k +
+    1]]``, or ``bounds[k]:bounds[k + 1]`` when ``order`` is None, as it
+    is for non-decreasing ``keys``; otherwise ``order`` is one stable
+    argsort, so each key's rows keep the order a mask would give them.
+    Rows of a key outside [0, n) fall in no key's range."""
+    order = None
+    if len(keys) > 1 and (keys[1:] < keys[:-1]).any():
+        order = np.argsort(keys, kind='stable')
+        keys = keys[order]
+    return order, np.searchsorted(keys, np.arange(n + 1, dtype=keys.dtype))
+
+
+def _copy(photons):
+    """A Photons that owns copies of ``photons``' arrays."""
+    return event.Photons(**{f: getattr(photons, f).copy()
+                            for f in event._FIELDS})
+
+
+def _split_hits(hits, nevents):
+    """Each event's rows of the batch's flat ``hits``, by ``evidx``, as
+    Photons that own their arrays: an event kept alone does not pin the
+    batch.  Counts ``simulate.debatch_resorted`` when the rows came out
+    of event order and had to be sorted."""
+    order, bounds = _split_by(hits.evidx, nevents)
+    if order is not None:
+        tracing.count('simulate.debatch_resorted', 1)
+        hits = hits[order]
+    return [_copy(hits[lo:hi]) for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _by_channel(hits):
+    """``{channel: its hits}``, channels ascending and each channel's
+    rows in their order in ``hits``, as a mask a channel gives them; the
+    values are slices of one gathered copy."""
+    n = int(hits.channel.max()) + 1 if len(hits) else 0
+    order, bounds = _split_by(hits.channel, n)
+    hits = _copy(hits) if order is None else hits[order]
+    return {int(c): hits[bounds[c]:bounds[c + 1]]
+            for c in np.flatnonzero(np.diff(bounds))}
+
+
 class Simulation(object):
     def __init__(self, detector, seed=None, geant4_processes=0,
                  device=None, driver='fused', photon_tracking=False,
@@ -199,10 +242,24 @@ class Simulation(object):
                     self.gpu_geometry.det, u, nch,
                     nevents=len(batch_events))
 
+        keep_any_hits = is_detector and (keep_hits or keep_flat_hits)
         for i, (batch_ev, (start, end)) in enumerate(zip(
                 batch_events, zip(batch_bounds[:-1], batch_bounds[1:]))):
             # closed before the yield: a consumer's time is not the split's
             with tracing.span('simulate.debatch'):
+                if i == 0:
+                    # the batch's split, once, in its first event's span:
+                    # every event's hits (the drivers hand the photons
+                    # back in upload order, so in evidx order), split on
+                    # the host while the device runs the DAQ, then one
+                    # download of every event's channels
+                    if keep_any_hits:
+                        ev_hits = _split_hits(batch_hits, len(batch_events))
+                        del batch_hits
+                    if is_detector and run_daq:
+                        batch_channels = gpu.GPUChannels(
+                            channels['t'], channels['q'],
+                            channels['flags']).get()
                 if not keep_photons_beg:
                     batch_ev.photons_beg = None
                 if tracking is not None:
@@ -210,19 +267,19 @@ class Simulation(object):
                                                             end)
                 if keep_photons_end:
                     batch_ev.photons_end = batch_photons_end[start:end]
-                if is_detector and (keep_hits or keep_flat_hits):
-                    ev_hits = batch_hits[batch_hits.evidx == i]
+                if keep_any_hits:
+                    # handed over: the generator keeps no event's hits
+                    hits, ev_hits[i] = ev_hits[i], None
                     if keep_hits:
-                        batch_ev.hits = {
-                            int(c): ev_hits[ev_hits.channel == c]
-                            for c in np.unique(ev_hits.channel)}
+                        batch_ev.hits = _by_channel(hits)
                     if keep_flat_hits:
-                        batch_ev.flat_hits = ev_hits
+                        batch_ev.flat_hits = hits
                 if is_detector and run_daq:
                     sl = slice(i * nch, (i + 1) * nch)
-                    batch_ev.channels = gpu.GPUChannels(
-                        channels['t'][sl], channels['q'][sl],
-                        channels['flags'][sl]).get()
+                    c = batch_channels
+                    batch_ev.channels = event.Channels(
+                        c.hit[sl].copy(), c.t[sl].copy(), c.q[sl].copy(),
+                        c.flags[sl].copy())
             yield batch_ev
 
     def simulate(self, iterable, keep_photons_beg=False,

@@ -28,6 +28,8 @@ Spans (parents in brackets):
   ``Simulation.simulate``'s batch: joining the events' photons, the
   upload, the propagation, the flat-hit download and the DAQ;
   ``simulate.debatch``, one per event: its hits, channels and tracks;
+  the first event's also holds the batch's split, done once: the flat
+  hits' event bounds and one download of every event's channels;
 * ``step.live`` [``simulate.propagate``]: the step loop's wait for
   the live-photon list, once a step (and the last check that finds
   none); ``step.draw``, ``step.gather``, ``step.walk``, ``step.physics``,
@@ -38,8 +40,11 @@ Spans (parents in brackets):
   driver's host read of its chains' counts, a walker window and a
   service pass.
 
-Counter ``step.live_photons``: photon-steps of the step loop (the live
-count each step, read on the host after the step's sync).
+Counters: ``step.live_photons``, photon-steps of the step loop (the live
+count each step, read on the host after the step's sync);
+``simulate.debatch_resorted``, batches whose flat hits came back out of
+event order and were sorted once to be split (0 on every driver, which
+all hand the photons back in upload order).
 """
 import contextlib
 import threading

@@ -9,7 +9,7 @@ on a small scene (a 1,000 mm black sphere around one PMT cube):
   ``step.live_photons`` sums the live photons of every step;
 * ``simulate`` records one join, upload, propagate, hits and daq a
   batch and one debatch an event, none of them open while the caller
-  holds an event;
+  holds an event; the batch's split adds no debatch span;
 * self time is the duration less the direct children's; a replaced
   ``open_range`` sees every span; the lane-pool driver records one
   ``pass.service`` a service pass (``last_stats[0]``).
@@ -176,6 +176,21 @@ def test_simulate_spans_a_batch_and_an_event(scene):
     totals = rec.totals()
     for name, (n, total, own) in totals.items():
         assert n == counts[name] and 0 <= own <= total, name
+
+
+@pytest.mark.parametrize('per_batch', [1, 4])
+def test_the_batch_split_adds_no_debatch_span(scene, per_batch):
+    """The batch's split runs inside its first event's span: one
+    ``simulate.debatch`` an event, with one event a batch or four."""
+    sim = Simulation(scene, seed=9, driver='steps')
+    with tracing.recording() as rec:
+        events = list(sim.simulate(_bombs([150] * 4), run_daq=True,
+                                   photons_per_batch=150 * per_batch))
+    counts = _counts(rec)
+    assert len(events) == 4
+    assert counts['simulate.hits'] == 4 // per_batch
+    assert counts['simulate.debatch'] == 4
+    assert rec.counts.get('simulate.debatch_resorted', 0) == 0
 
 
 def test_a_consumer_holding_an_event_adds_nothing(scene):
