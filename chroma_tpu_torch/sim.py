@@ -231,6 +231,11 @@ class Simulation(object):
         if is_detector and (keep_hits or keep_flat_hits):
             with tracing.span('simulate.hits'):
                 batch_hits = gpu_photons.get_flat_hits(self.gpu_geometry)
+                if tracing.recorder is not None \
+                        and self.gpu_geometry.geom.has_reemission:
+                    flags = gpu_photons.state['flags']
+                    tracing.count('simulate.reemitted', int(
+                        ((flags & event.BULK_REEMIT) != 0).sum()))
         if is_detector and run_daq and channels is None:
             # one DAQ over the whole batch, into per-event channel blocks
             # keyed by evidx

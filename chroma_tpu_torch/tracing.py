@@ -36,6 +36,10 @@ Spans (parents in brackets):
   ``step.scatter``: issuing a step's draws, the live rows' gather, the
   NaN guard and the walk, the physics, the scatter back (with any wait
   for the device inside them);
+* ``step.reemit`` [``step.physics``]: issuing ``physics_update``'s bulk
+  reemission (the absorbing component, the reemission draws, the new
+  wavelength, time and direction), opened only where the tables hold a
+  reemitting material;
 * ``pass.wait``, ``pass.walk``, ``pass.service``: the lane-pool
   driver's host read of its chains' counts, a walker window and a
   service pass.
@@ -44,7 +48,10 @@ Counters: ``step.live_photons``, photon-steps of the step loop (the live
 count each step, read on the host after the step's sync);
 ``simulate.debatch_resorted``, batches whose flat hits came back out of
 event order and were sorted once to be split (0 on every driver, which
-all hand the photons back in upload order).
+all hand the photons back in upload order); ``simulate.reemitted``, a
+batch's photons whose end flags carry ``BULK_REEMIT``, read beside the
+flat-hit download only while recording and only where the tables hold a
+reemitting material (one reduction and one sync a batch).
 """
 import contextlib
 import threading

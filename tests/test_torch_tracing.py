@@ -12,7 +12,12 @@ on a small scene (a 1,000 mm black sphere around one PMT cube):
   holds an event; the batch's split adds no debatch span;
 * self time is the duration less the direct children's; a replaced
   ``open_range`` sees every span; the lane-pool driver records one
-  ``pass.service`` a service pass (``last_stats[0]``).
+  ``pass.service`` a service pass (``last_stats[0]``);
+* with the sphere filled with a scintillator of two reemitting
+  components, the step loop opens one ``step.reemit`` a step under
+  ``step.physics`` and gives the same state on or off, and
+  ``simulate.reemitted`` equals the batches' ``BULK_REEMIT`` end flags;
+  in water no ``step.reemit`` opens and nothing is counted.
 """
 import collections
 import contextlib
@@ -29,7 +34,7 @@ import torch
 # share the cores, and oversubscribed thread teams stall each other
 torch.set_num_threads(1)
 
-from chroma_tpu_torch import gpu, host, tracing
+from chroma_tpu_torch import event, gpu, host, tracing
 from chroma_tpu_torch.ops import photon as photon_ops
 from chroma_tpu_torch.ops.propagate import alive_mask
 from chroma_tpu_torch.sim import Simulation
@@ -60,6 +65,40 @@ def _scene():
 @pytest.fixture(scope='module')
 def scene():
     return gpu.GPUDetector(_scene(), 'cpu')
+
+
+def _scint_scene():
+    """The scene with its sphere filled with a scintillator of two
+    components, each absorbing over 600 mm (300 mm together) and
+    reemitting over 380-480 nm with probability 0.3 and 0.8."""
+    from chroma_tpu_torch import make
+    from chroma_tpu_torch.demo import optics
+    from chroma_tpu_torch.detector import Detector
+    from chroma_tpu_torch.geometry import Material, Solid
+    x = np.arange(60.0, 1000.0, 5.0)
+    scint = Material('scint')
+    scint.set('refractive_index', 1.5)
+    scint.set('absorption_length', 300.0)
+    scint.set('scattering_length', 1e6)
+    cdf = np.clip((x - 380.0) / 100.0, 0.0, 1.0)
+    for prob in (0.3, 0.8):
+        scint.add_reemission_component(
+            reemission_prob=np.column_stack([x, np.full_like(x, prob)]),
+            wvl_cdf=np.column_stack([x, cdf]),
+            absorption_length=np.column_stack([x, np.full_like(x, 600.0)]))
+    det = Detector(scint)
+    det.add_solid(Solid(make.sphere(1000.0, nsteps=24), scint,
+                        optics.water, surface=optics.black_surface))
+    det.add_pmt(Solid(make.cube(300.0), scint, scint,
+                      surface=optics.r7081hqe_photocathode),
+                displacement=(0, 0, 500.0))
+    det.flatten()
+    return det
+
+
+@pytest.fixture(scope='module')
+def scint_scene():
+    return gpu.GPUDetector(_scint_scene(), 'cpu')
 
 
 def _bombs(sizes, seed=17):
@@ -120,6 +159,47 @@ def test_step_loop_is_bit_equal_on_and_off(scene):
         a, b = v.numpy(), on.state[k].numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, k
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), k
+
+
+def test_step_loop_with_reemission_is_bit_equal_on_and_off(scint_scene):
+    ph = _bombs([600])[0]
+    off = _propagate(scint_scene, ph, driver='steps')
+    with tracing.recording() as rec:
+        on = _propagate(scint_scene, ph, driver='steps')
+    counts = _counts(rec)
+    assert counts['step.reemit'] == counts['step.physics'] == on.last_steps
+    assert {p for n, p, _, _ in rec.spans if n == 'step.reemit'} \
+        == {'step.physics'}
+    flags = off.state['flags'].numpy().view(np.uint32)
+    assert ((flags & event.BULK_REEMIT) != 0).sum() > 100
+    for k, v in off.state.items():
+        a, b = v.numpy(), on.state[k].numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), k
+
+
+def test_reemitted_counts_the_bulk_reemit_end_flags(scint_scene):
+    """``simulate.reemitted`` sums each batch's photons that end with
+    ``BULK_REEMIT``: two batches of two events."""
+    sim = Simulation(scint_scene, seed=9, driver='steps')
+    with tracing.recording() as rec:
+        events = list(sim.simulate(_bombs([300] * 4), run_daq=True,
+                                   keep_photons_end=True,
+                                   photons_per_batch=600))
+    flags = np.concatenate([ev.photons_end.flags for ev in events])
+    want = int(((flags & event.BULK_REEMIT) != 0).sum())
+    assert want > 100
+    assert rec.counts['simulate.reemitted'] == want
+    assert _counts(rec)['simulate.hits'] == 2
+
+
+def test_water_opens_no_reemit_span_and_counts_nothing(scene):
+    sim = Simulation(scene, seed=9, driver='steps')
+    with tracing.recording() as rec:
+        list(sim.simulate(_bombs([300, 300]), run_daq=True))
+    assert _counts(rec)['step.physics'] > 0
+    assert 'step.reemit' not in _counts(rec)
+    assert 'simulate.reemitted' not in rec.counts
 
 
 @pytest.mark.parametrize('max_steps', [2, 100])
