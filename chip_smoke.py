@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles chroma_tpu_torch/csrc/*.cu with nvcc, one process
      per source, all started together; prints each kernel's ptxas
-     registers, stack frame and spills (the K5 kernel's persistent grid
+     registers, stack frame and spills of the walker's 8 builds and the
+     physics kernel's 8 (the K5 kernel's persistent grid
      is printed in phases 4 and 15);
   3. the closest-hit walker kernel (one warp per ray) against its plain
      PyTorch version on the card (flat sphere, instanced demo.tiny,
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and K5), ``service_frac=0.25``, ``chains=3`` and
      ``driver='compacting'``; each with its photons/s, stats, active
      share (``collect_stats``) and launches by variant; >= 99% of
-     photons terminal and in upload order in each;
+     photons terminal and in upload order in each, the physics kernel
+     launched in each (once a step on the step loop);
   7. full-demo physics (on-deck driver) against
      tests/golden/demo_full_pdf.npz;
   8. ``Simulation.simulate(run_daq=True)`` on demo.tiny through both
@@ -92,7 +94,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      bit-equal to the plain walker and timed; one flat K3 and one flat
      K5 window at 65,536 lanes bit-equal and timed; 1,048,576 photons
      through both drivers and the driver without on-deck slots (>= 99%
-     terminal, something detected, every hit channel a channel); then
+     terminal, something detected, every hit channel a channel); the
+     physics kernel on the step loop's own inputs (``physics_phase``):
+     one launch a step serving every photon-step, and on the first
+     step's live rows bit-equal to ``physics_update_plain``, both timed;
+     then
      ``chroma-torch-geo save``, ``-bvh create/stat/
      optimize`` and ``-sim`` to an npz file on a 100-PMT copy;
  16. photon-axis sharding on the full demo over two shards on the one
@@ -105,7 +111,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      events of 100,000 photons, whose channels must equal the min, sum
      and OR of both shards' ``run_daq`` run by hand, pooled det_frac
      within 0.004 of tests/golden/demo_full_pdf.npz; one ``eval_pdf`` on
-     the mesh against the same unsharded, hitcount within 6 sigma.
+     the mesh against the same unsharded, hitcount within 6 sigma;
+ 17. the physics kernel as in phase 15 on a reemitting table
+     (tests/torch_scenes.py's two-component scintillator): a 1,048,576-
+     photon 400 nm bomb through the step loop, some photons reemitted in
+     the first step.
 The line before the last is a JSON summary of every kernel; the last is
 {"ok": true, "device": {...}}.  Caches go under .cache/ in the checkout.
 
@@ -115,8 +125,10 @@ written once; of the rows table, the rows this run's walks read; the
 16-bit pending codes at 2 bytes) over 3.35 TB/s and the float
 operations this run's walks needed (counted op by op from the code, see
 FLOPS_*) over 67 TFLOP/s fp32, the
-published peaks of an H100 SXM at 700 W.  No PyTorch call computes a
-BVH walk, so no kernel has a library time.
+published peaks of an H100 SXM at 700 W.  The physics kernel's bound
+counts bytes alone, from the step's own inputs (PHYS_BYTES_*).  No
+PyTorch call computes a BVH walk or a photon step, so no kernel has a
+library time.
 """
 import contextlib
 import importlib.util
@@ -139,7 +151,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chroma_tpu_torch import _build, benchmark, gpu, host  # noqa: E402
-from chroma_tpu_torch import parallel, referee  # noqa: E402
+from chroma_tpu_torch import parallel, referee, tracing  # noqa: E402
 from chroma_tpu_torch.cli import bvh as cli_bvh, geo as cli_geo  # noqa: E402
 from chroma_tpu_torch.cli import sim as cli_sim  # noqa: E402
 from chroma_tpu_torch.detector import Detector  # noqa: E402
@@ -155,6 +167,7 @@ from chroma_tpu_torch.tools import from_film  # noqa: E402
 from chroma_tpu_torch.ops import daq as daq_ops, fused  # noqa: E402
 from chroma_tpu_torch.ops import mbvh as tmbvh, mbvh_walk  # noqa: E402
 from chroma_tpu_torch.ops import mesh as escape_mesh  # noqa: E402
+from chroma_tpu_torch.ops import propagate  # noqa: E402
 from chroma_tpu_torch.loader import create_geometry_from_obj  # noqa: E402
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry  # noqa: E402
 from chroma_tpu_torch.likelihood import Likelihood  # noqa: E402
@@ -182,6 +195,7 @@ ALPHA_DEPTH = 10
 LONG_WINDOW = 4096      # iterations: every walk drains well before
 SNO_SMALL_NPMT = 100    # the SNO-like detector the commands save and run
 SNO_GUN_EVENTS = 4      # chroma-torch-sim events on it
+SCINT_WAVELENGTH = 400.0  # nm: phase 17's bomb, absorbed and reemitted
 # phase 16: two shards on the one card, which runs them one after the
 # other: every piece of the sharded path but copies between cards
 SHARD_DEVICES = ('cuda:0', 'cuda:0')
@@ -234,6 +248,24 @@ FLOPS_RAY = 6
 ROW_BYTES = mbvh_walk.ROW_WIDTH * 4
 RAY_IN_BYTES = 12 + 12 + 4 + 1      # org, dir, last-hit triangle, active
 RAY_OUT_BYTES = 4 + 4 + 12 + 4 + 1  # triangle, distance, normal, mat, inc
+# The least bytes csrc/physics_step.cu moves for a photon, by what the
+# photon is this step.  Every photon reads its position, direction,
+# polarization, wavelength, time, weight and last hit (52) and its active
+# byte (1), and writes its new state (56); an active one reads its
+# incomplete byte (1).  One the kernel copies through (not active, or its
+# walk incomplete) reads its NaN byte and one flags word (5).  A live one
+# reads its flags word and its walk's triangle, distance, normal and
+# material code (28); a live hit reads the two draws every outcome takes
+# (8) and a per-photon scatter_first (4).  The draws that only some
+# outcomes take (up to 32 more, a reemission's) and the tables (a few kB,
+# cached) are not counted.
+PHYS_BYTES_ALL = 52 + 1 + 56
+PHYS_BYTES_ACTIVE = 1
+PHYS_BYTES_COPIED = 5
+PHYS_BYTES_LIVE = 28
+PHYS_BYTES_HIT = 8
+PHYS_BYTES_SF = 4
+PHYS_REPS = 20          # timed kernel launches on the kept inputs
 
 
 def check(ok, what):
@@ -526,7 +558,8 @@ def ptxas_summary(log):
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r'(closest_hit_kernel|walk_window_kernel|'
-                      r'walk_window_k5_kernel)I((?:L[a-z]+\d+E)+)E', line)
+                      r'walk_window_k5_kernel|physics_step_kernel)'
+                      r'I((?:L[a-z]+\d+E)+)E', line)
         if 'Compiling entry function' in line and m:
             name = '%s<%s>' % (m.group(1), ', '.join(
                 re.findall(r'L[a-z]+(\d+)E', m.group(2))))
@@ -824,7 +857,8 @@ def kernel_ms(module, name):
 
 def counts():
     """{counter name: launches} of every kernel counter."""
-    out = {'closest_hit': mbvh_walk.closest_hit_launches.launches}
+    out = {'closest_hit': mbvh_walk.closest_hit_launches.launches,
+           'physics': propagate.physics_launches.launches}
     out.update({str(k): c.launches
                 for k, c in mbvh_walk.walk_window_launches.items()})
     return out
@@ -872,6 +906,11 @@ def drive(gg, photons, label, kw, card, seed=1):
     check(terminal >= 0.99, '%s: only %.4f of photons ended terminal'
           % (label, terminal))
     check(order, '%s: photons not in upload order' % label)
+    physics = run['launches'].get('physics', 0)
+    check(physics > 0, '%s: the physics kernel never launched' % label)
+    check(kw.get('driver') != 'steps' or physics == gp.last_steps,
+          '%s: %d physics-kernel launches in %d steps'
+          % (label, physics, gp.last_steps))
     return run
 
 
@@ -882,16 +921,21 @@ def driver_phase(gg, card):
     side, round r with generator seed r + 1 on both sides: the pool-dry
     tail, and with it the passes, follows the slowest photon of a
     draw); then one run of each other driver mode at seed 1.  Every run
-    >= 0.99 terminal, in upload order.  Returns (window launches by
-    walk_window_launches key, closest-hit launches)."""
+    >= 0.99 terminal, in upload order, its physics in the physics kernel
+    (one launch a step on the step loop).  Returns (window launches by
+    walk_window_launches key, closest-hit launches, physics-kernel
+    launches)."""
+    check(propagate.kernel_serves(gg.geom, gg.device),
+          'the physics kernel does not serve the full demo')
     photons = benchmark._isotropic_photons(NPHOTONS)
     launches = {k: 0 for k in mbvh_walk.walk_window_launches}
-    ch = [0]
+    ch = [0, 0]
 
     def add(run):
         for k, c in mbvh_walk.walk_window_launches.items():
             launches[k] += c.launches
         ch[0] += mbvh_walk.closest_hit_launches.launches
+        ch[1] += propagate.physics_launches.launches
         return run
 
     line = {'phase': 6, 'photons': NPHOTONS, 'card': card, 'pairs': {},
@@ -942,8 +986,117 @@ def driver_phase(gg, card):
         check(launches[key] > 0, 'phase 6 never launched the window '
               'kernel %s' % variant(*key_parts(key)))
     check(ch[0] > 0, 'the step loop never launched the walker kernel')
-    return launches, ch[0]
+    return launches, ch[0], ch[1]
 
+
+
+def physics_bound(args, scatter_first):
+    """Photons, live rows, hits, bytes and bound of one physics-kernel
+    launch on ``physics_update``'s arguments ``args`` (PHYS_BYTES_*)."""
+    res, active = args[1], args[5]
+    n = active.shape[0]
+    live = active & ~res['incomplete']
+    hit = live & (res['triangle'] >= 0)
+    nactive, nlive, nhit = (int(m.sum()) for m in (active, live, hit))
+    per_hit = PHYS_BYTES_HIT + (PHYS_BYTES_SF if isinstance(
+        scatter_first, torch.Tensor) else 0)
+    nbytes = n * PHYS_BYTES_ALL + nactive * PHYS_BYTES_ACTIVE \
+        + (n - nlive) * PHYS_BYTES_COPIED + nlive * PHYS_BYTES_LIVE \
+        + nhit * per_hit
+    return dict(photons=n, live=nlive, hits=nhit, bytes=nbytes,
+                bound=bound(0, nbytes))
+
+
+def scint_scene():
+    """tests/torch_scenes.py's two-component scintillator, its module
+    loaded by path: a card host may install another package ``tests``."""
+    spec = importlib.util.spec_from_file_location(
+        'torch_scenes', os.path.join(ROOT, 'tests', 'torch_scenes.py'))
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    return scenes.scint_scene()
+
+
+def physics_variant(tables, use_weights):
+    return 'physics_step_kernel<%s, %s, %s>' % tuple(
+        str(bool(x)).lower() for x in (tables.has_reemission,
+                                       tables.has_surfaces, use_weights))
+
+
+def physics_phase(gg, photons, what, card, seed=1):
+    """The step physics kernel on the step loop's own inputs: ``photons``
+    through the step loop on ``gg`` (max_steps 100), the launch counts
+    set to 0 just before and a recorder on: one kernel launch a step,
+    and ``step.physics_kernel_photons`` equal to ``step.live_photons``.
+    The first step's ``physics_update`` arguments (the live rows the
+    loop gathered, the walk's result, the draws) are kept; on them the
+    kernel and ``physics_update_plain`` give every output bit-equal, and
+    both are timed: the kernel's device ms a launch (mean of PHYS_REPS,
+    the card asleep while the host runs the wrapper), the plain version's
+    ms between CUDA events; the bound is counted from those inputs.
+    Returns the ``kernels`` entry's numbers."""
+    dev = gg.device
+    update, kept = propagate.physics_update, []
+
+    def keep(*args, **kw):
+        if not kept:
+            kept.append((args, kw))
+        return update(*args, **kw)
+
+    reset()
+    gp = gpu.GPUPhotons(photons, dev)
+    propagate.physics_update = keep
+    try:
+        with tracing.recording() as rec:
+            gp.propagate(gg, gpu.get_rng_states(seed=seed, device=dev),
+                         max_steps=100, driver='steps')
+            torch.cuda.synchronize()
+    finally:
+        propagate.physics_update = update
+    launches = propagate.physics_launches.launches
+    check(launches == gp.last_steps > 0, '%s: %d physics-kernel launches '
+          'in %s steps' % (what, launches, gp.last_steps))
+    served = rec.counts.get('step.physics_kernel_photons', 0)
+    check(served == rec.counts['step.live_photons'], '%s: the kernel served '
+          '%d of %d photon-steps' % (what, served,
+                                     rec.counts['step.live_photons']))
+    args, kw = kept[0]
+    tables, use_weights = args[2], kw.get('use_weights', False)
+    k = propagate.physics_update_cuda(*args, **kw)
+    p = propagate.physics_update_plain(*args, **kw)
+    err = compare_state(k, p, '%s, physics kernel against plain' % what)
+    if tables.has_reemission:
+        reemitted = int(((p['flags'] & i32(host.event.BULK_REEMIT)) != 0)
+                        .sum())
+        check(reemitted > 0, '%s: no photon reemitted in the first step'
+              % what)
+    b = physics_bound(args[:7], args[7] if len(args) > 7
+                      else kw.get('scatter_first', 0))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    times = []
+    for r in range(PHYS_REPS + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        propagate.physics_update_cuda(*args, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        if r:
+            times.append(start.elapsed_time(stop))
+    ms_ = sum(times) / len(times)
+    plain_ms = cuda_ms(lambda: propagate.physics_update_plain(*args, **kw),
+                       3)
+    print('physics kernel, %s (%s): %d steps, %d photon-steps, one launch '
+          'a step; first step %d photons (%d live, %d hits), bit-equal to '
+          'the plain version; kernel %.4f ms, plain %.3f ms (%s); %.1f MB, '
+          'bound %.4f ms = %.1f%% of the kernel'
+          % (what, physics_variant(tables, use_weights), gp.last_steps,
+             served, b['photons'], b['live'], b['hits'], ms_, plain_ms, card,
+             b['bytes'] / 1e6, b['bound'][0], 100.0 * b['bound'][0] / ms_),
+          flush=True)
+    return (ms_, plain_ms, b, launches, err,
+            physics_variant(tables, use_weights))
 
 
 def full_detector(dev):
@@ -966,7 +1119,8 @@ def full_detector(dev):
 
 
 COUNTERS = [mbvh_walk.closest_hit_launches,
-            *mbvh_walk.walk_window_launches.values()]
+            *mbvh_walk.walk_window_launches.values(),
+            propagate.physics_launches]
 
 
 def reset():
@@ -1553,6 +1707,8 @@ def sno_phase(dev, card):
                  card, terminal, det_frac, chan.unique().numel(), launches,
                  number + 1), flush=True)
     print(json.dumps(line), flush=True)
+    physics = physics_phase(gg, benchmark._isotropic_photons(NPHOTONS),
+                            'SNO-like flat', card)
     del gg, g, args
     torch.cuda.empty_cache()
 
@@ -1584,7 +1740,8 @@ def sno_phase(dev, card):
         print('.root output: %s written' % root_out, flush=True)
     return {'k1': (ms1, plain_ms1, b1, k1_launches, err1),
             'k3': (ms3, plain_ms3, b3, k3_launches, err3),
-            'k5': (ms5, plain_ms5, b5, k5_launches, err5)}
+            'k5': (ms5, plain_ms5, b5, k5_launches, err5),
+            'physics': physics}
 
 
 def shard_phase(gg, card, golden_det_frac):
@@ -1757,12 +1914,15 @@ def timing(ms_, plain, b):
             'share': b['bound'][0] / ms_}
 
 
-def kernel_entries(closest, werr, wms, w_launches, sno):
+def kernel_entries(closest, werr, wms, w_launches, sno, phys_launches):
     """The ``kernels`` line's entries: the closest-hit kernel (K2, with
     ``closest`` = (launches, max error, ms, plain ms, bound)), every
     window variant on the full demo (errors, times and launches keyed by
-    ``walk_window_launches`` key) and the flat kernels of phase 15
-    (``sno``).  Fails if a kernel was never launched on its path."""
+    ``walk_window_launches`` key), the flat kernels of phase 15
+    (``sno``) and the physics kernel on phase 15's SNO-like table and
+    phase 17's scintillator (with ``phys_launches``, phase 6's launches
+    of it on the main path).  Fails if a kernel was never launched on its
+    path."""
     launches, err, ms, plain_ms, bound_ = closest
     check(launches > 0, 'the closest-hit kernel was never launched')
     entries = [dict({
@@ -1804,6 +1964,21 @@ def kernel_entries(closest, werr, wms, w_launches, sno):
             'replaces': 'chroma_tpu/ops/mbvh_pallas.py:636',
             'launches': n, 'max_abs_err': e},
             **timing(ms_, plain, b)))
+    for key, name, phase in (
+            ('physics', 'physics_step', '15, SNO-like flat table, the step '
+             'loop\'s first step'),
+            ('physics_reemit', 'physics_step_reemit', '17, two-component '
+             'scintillator, the step loop\'s first step')):
+        ms_, plain, b, n, e, what = sno[key]
+        check(n > 0, 'phase %s never launched %s' % (phase[:2], what))
+        entries.append(dict({
+            'name': name, 'variant': what, 'phase': phase, 'route': 'cuda',
+            'source': 'chroma_tpu_torch/csrc/physics_step.cu',
+            'replaces': None, 'launches': n, 'max_abs_err': e},
+            **timing(ms_, plain, b)))
+    check(phys_launches > 0, 'the main path never launched the physics '
+          'kernel')
+    entries[-2]['main_path_launches'] = phys_launches
     return entries
 
 
@@ -1830,7 +2005,7 @@ def main():
     print('build: %s in %.1f s' % (os.path.relpath(path, ROOT),
                                    time.time() - t0))
     ptxas = ptxas_summary(log)
-    check(len(ptxas) == 8, 'ptxas reported %d of 8 kernel builds'
+    check(len(ptxas) == 16, 'ptxas reported %d of 16 kernel builds'
           % len(ptxas))
     for name, what in sorted(ptxas.items()):
         print('  ptxas: %s: %s' % (name, what))
@@ -2011,8 +2186,9 @@ def main():
           '(%s); %d kernel launches in %d intersect calls'
           % (nrays, ['%.0f' % r for r in ray_rates], ray_rates.mean(), card,
              ch_launches, len(ray_rates) + 1))
-    launches, k_launches = driver_phase(gg, card)
+    launches, k_launches, phys_launches = driver_phase(gg, card)
     ch_launches += k_launches
+    print('phase 6: %d physics-kernel launches' % phys_launches, flush=True)
     w_launches = dict(launches)
 
     # ---- 7. full-demo physics against its golden ----------------------
@@ -2216,12 +2392,19 @@ def main():
     # ---- 16. photon-axis sharding on the full demo --------------------
     w_launches[1] += shard_phase(gg, card, float(np.load(os.path.join(
         GOLDEN_DIR, 'demo_full_pdf.npz'))['det_frac']))
+
+    # ---- 17. the physics kernel on a two-component scintillator ------
+    np.random.seed(G.GOLDEN_SEED + 17)
+    sno['physics_reemit'] = physics_phase(
+        gpu.GPUDetector(scint_scene(), dev),
+        host.photon_bomb(NPHOTONS, SCINT_WAVELENGTH, (0.0, 0.0, 0.0))
+        .photons_beg, 'two-component scintillator', card)
     print('chip_smoke: %.1f s in all' % (time.time() - t_start))
 
     print('nvidia-smi name, power.limit: %s' % card)
 
     entries = kernel_entries((ch_launches, err, ms, plain_ms, ch_bound),
-                             werr, wms, w_launches, sno)
+                             werr, wms, w_launches, sno, phys_launches)
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -152,4 +152,13 @@ def library():
     lib.mbvh_walk_window_k5_grid.argtypes = [
         i, ctypes.POINTER(i),        # instanced, blocks (out)
         ctypes.POINTER(i)]           # warps a block (out)
+    lib.physics_step.restype = i
+    lib.physics_step.argtypes = [
+        p, i, i,                     # pointer slots, their count, n
+        i, i, i, i, i,               # materials, wavelengths, components,
+                                     # inverse-CDF nodes, surfaces
+        i, f, f,                     # scatter_first, wavelength0, step
+        i, i, i,                     # has_reemission, has_surfaces,
+                                     # use_weights
+        p]                           # stream
     return lib

@@ -36,16 +36,22 @@ Spans (parents in brackets):
   ``step.scatter``: issuing a step's draws, the live rows' gather, the
   NaN guard and the walk, the physics, the scatter back (with any wait
   for the device inside them);
-* ``step.reemit`` [``step.physics``]: issuing ``physics_update``'s bulk
-  reemission (the absorbing component, the reemission draws, the new
-  wavelength, time and direction), opened only where the tables hold a
-  reemitting material;
+* ``step.reemit`` [``step.physics``]: issuing the plain
+  ``physics_update``'s bulk reemission (the absorbing component, the
+  reemission draws, the new wavelength, time and direction), opened only
+  on the plain path (on the CPU, or for tables with a WLS, dichroic or
+  thin-film surface) and only where the tables hold a reemitting
+  material: the physics kernel on the card reemits inside its one
+  launch;
 * ``pass.wait``, ``pass.walk``, ``pass.service``: the lane-pool
   driver's host read of its chains' counts, a walker window and a
   service pass.
 
 Counters: ``step.live_photons``, photon-steps of the step loop (the live
 count each step, read on the host after the step's sync);
+``step.physics_kernel_photons``, the photons of each ``physics_update``
+call that the CUDA physics kernel served (the call's batch size, known
+on the host: no sync; every driver's calls, the step loop's one a step);
 ``simulate.debatch_resorted``, batches whose flat hits came back out of
 event order and were sorted once to be split (0 on every driver, which
 all hand the photons back in upload order); ``simulate.reemitted``, a

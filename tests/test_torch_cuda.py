@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of chroma_tpu_torch against their plain
 PyTorch versions, on the card; the gated physics models, one ``eval_pdf``
-and tracking mode through those kernels.
+and tracking mode through those kernels; the step physics kernel against
+``physics_update_plain`` and whole propagations through it.
 
 These tests need an NVIDIA card and nvcc, and skip elsewhere.  They
 import neither jax nor tests/conftest.py (which does), so on a card host
@@ -20,6 +21,10 @@ from chroma_tpu_torch import host
 from chroma_tpu_torch.ops import mbvh as tmbvh
 from chroma_tpu_torch.ops import mbvh_walk
 from chroma_tpu_torch.ops.geometry_pack import pack_geometry
+
+# beside this file, found through the test's own folder on sys.path: a
+# card host may install another package named ``tests``
+import torch_scenes
 
 
 @pytest.fixture(scope='module')
@@ -437,3 +442,162 @@ def test_k5_kernel_mixed_lanes(dev, name, prune):
         _k5_window(g, k, p, iters, prune)
     for key, v in start.items():
         assert torch.equal(k[key][lanes], v[lanes]), key
+
+
+# ---- the physics kernel (csrc/physics_step.cu) --------------------------
+
+@pytest.fixture(scope='module')
+def physics_tables(dev):
+    return {name: pack_geometry(make(), dev)
+            for name, make in torch_scenes.SCENES.items()}
+
+
+def _assert_physics_equal(k, p, what):
+    """Every field bit-equal (floats by their bits), or the photons that
+    differ named."""
+    for key in p:
+        a, b = k[key], p[key]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad = (a != b).reshape(a.shape[0], -1).any(dim=1)
+        assert not bad.any(), (what, key, int(bad.sum()),
+                               torch.nonzero(bad)[:8, 0].tolist())
+
+
+# outcomes a batch of ``torch_scenes.physics_inputs`` reaches in each
+# scene without forced scattering or weights, so that the comparison
+# covers them
+PHYSICS_OUTCOMES = {
+    'water': ('NO_HIT', 'BULK_ABSORB', 'RAYLEIGH_SCATTER', 'SURFACE_ABSORB',
+              'SURFACE_DETECT', 'REFLECT_DIFFUSE'),
+    'scint': ('NO_HIT', 'BULK_ABSORB', 'BULK_REEMIT', 'RAYLEIGH_SCATTER',
+              'SURFACE_ABSORB'),
+    'mixed': ('NO_HIT', 'BULK_ABSORB', 'RAYLEIGH_SCATTER', 'SURFACE_ABSORB',
+              'SURFACE_DETECT', 'REFLECT_DIFFUSE', 'REFLECT_SPECULAR'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('use_weights', [False, True])
+@pytest.mark.parametrize('scatter_first', [0, 1, -1, 'per_photon'])
+@pytest.mark.parametrize('scene', sorted(torch_scenes.SCENES))
+def test_physics_kernel_matches_plain(dev, physics_tables, scene,
+                                      scatter_first, use_weights):
+    """``physics_update`` through csrc/physics_step.cu against
+    ``physics_update_plain`` on one batch that mixes live, dead,
+    NaN-aborted, incomplete and missing photons (a ragged 40,001): every
+    output field bit-equal, one launch."""
+    from chroma_tpu_torch import event
+    from chroma_tpu_torch.ops import propagate
+    tables = physics_tables[scene]
+    n = 40001
+    args = torch_scenes.physics_inputs(tables, n, 11, dev)
+    sf = scatter_first
+    if sf == 'per_photon':
+        sf = torch.from_numpy(np.random.RandomState(5).randint(
+            -1, 2, n).astype(np.int32)).to(dev)
+    before = propagate.physics_launches.launches
+    k = propagate.physics_update(*args, sf, use_weights=use_weights)
+    torch.cuda.synchronize()
+    assert propagate.physics_launches.launches == before + 1
+    p = propagate.physics_update_plain(*args, sf, use_weights=use_weights)
+    assert propagate.physics_launches.launches == before + 1
+    _assert_physics_equal(k, p, (scene, scatter_first, use_weights))
+    assert k['evidx'] is args[0]['evidx'] and k['index'] is args[0]['index']
+    if scatter_first == 0 and not use_weights:
+        # forced scattering and weights take most of the surface
+        # outcomes away; here every outcome the scene holds occurs
+        flags = p['flags']
+        for name in PHYSICS_OUTCOMES[scene]:
+            assert ((flags & getattr(event, name)) != 0).sum() > 20, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('driver', ['steps', 'fused'])
+@pytest.mark.parametrize('scene', ['scint', 'mixed'])
+def test_propagation_with_physics_kernel_matches_plain(dev, scene, driver,
+                                                      monkeypatch):
+    """A whole propagation of 20,000 photons, with forced first scattering
+    (the lane-pool driver hands the kernel a per-photon scatter_first):
+    the kernel's final photons bit-equal to the plain physics'."""
+    from chroma_tpu_torch import gpu
+    from chroma_tpu_torch.ops import propagate
+    det = gpu.GPUDetector(torch_scenes.SCENES[scene](), dev)
+    np.random.seed(8)
+    ph = host.photon_bomb(20000, 420.0, (0.0, -200.0, 0.0)).photons_beg
+
+    def run():
+        gp = gpu.GPUPhotons(ph, dev)
+        gp.propagate(det, gpu.get_rng_states(seed=4, device=dev),
+                     driver=driver, scatter_first=1, width=4096)
+        return gp.state
+
+    before = propagate.physics_launches.launches
+    k = run()
+    assert propagate.physics_launches.launches > before
+    monkeypatch.setattr(propagate, 'kernel_serves', lambda *a: False)
+    before = propagate.physics_launches.launches
+    p = run()
+    assert propagate.physics_launches.launches == before
+    _assert_physics_equal(k, p, (scene, driver))
+
+
+@pytest.mark.cuda
+def test_physics_kernel_counts_and_gated_models(dev):
+    """On the card the step loop's physics runs in the kernel: the
+    counter ``step.physics_kernel_photons`` equals ``step.live_photons``
+    and no ``step.reemit`` opens in the scintillator.  A gate box with a
+    WLS, dichroic or thin-film surface keeps the plain path: the counter
+    stays at 0 and the kernel does not launch."""
+    from chroma_tpu_torch import gpu, tracing
+    from chroma_tpu_torch.ops import propagate
+    np.random.seed(9)
+    ph = host.photon_bomb(5000, 400.0, (0.0, 0.0, 0.0)).photons_beg
+    det = gpu.GPUDetector(torch_scenes.scint_scene(), dev)
+    with tracing.recording() as rec:
+        gpu.GPUPhotons(ph, dev).propagate(
+            det, gpu.get_rng_states(seed=3, device=dev), driver='steps')
+    assert rec.counts['step.physics_kernel_photons'] \
+        == rec.counts['step.live_photons'] > 5000
+    names = {name for name, _, _, _ in rec.spans}
+    assert 'step.physics' in names and 'step.reemit' not in names
+    for gate in ('wls', 'dichroic', 'complex'):
+        geo = gpu.GPUGeometry(host.gate_box(gate), dev)
+        before = propagate.physics_launches.launches
+        with tracing.recording() as rec:
+            gpu.GPUPhotons(ph, dev).propagate(
+                geo, gpu.get_rng_states(seed=3, device=dev), driver='steps')
+        assert rec.counts.get('step.physics_kernel_photons', 0) == 0, gate
+        assert rec.counts['step.live_photons'] > 0, gate
+        assert propagate.physics_launches.launches == before, gate
+
+
+@pytest.mark.cuda
+def test_physics_kernel_wrapper_refuses(dev, physics_tables):
+    """The wrapper checks what the kernel reads: a float or 2-d
+    scatter_first, a draw block of the wrong width, and tables with a
+    WLS surface raise before any launch."""
+    import dataclasses
+    from chroma_tpu_torch.ops import propagate
+    tables = physics_tables['water']
+    state, res, _, u, flags, active, nan_mask = \
+        torch_scenes.physics_inputs(tables, 64, 3, dev)
+    for sf in (torch.zeros(64, device=dev),
+               torch.zeros((64, 1), dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match='scatter_first'):
+            propagate.physics_update_cuda(state, res, tables, u, flags,
+                                          active, nan_mask, sf)
+    with pytest.raises(ValueError, match='arg u'):
+        propagate.physics_update_cuda(state, res, tables, u[:, :19], flags,
+                                      active, nan_mask)
+    with pytest.raises(ValueError, match='WLS'):
+        propagate.physics_update_cuda(
+            state, res, dataclasses.replace(tables, has_wls=True), u, flags,
+            active, nan_mask)
+    # a 0-d scatter_first applies to every photon
+    one = propagate.physics_update_cuda(state, res, tables, u, flags, active,
+                                        nan_mask, 1)
+    zero_d = propagate.physics_update_cuda(
+        state, res, tables, u, flags, active, nan_mask,
+        torch.tensor(1, device=dev))
+    _assert_physics_equal(one, zero_d, '0-d scatter_first')

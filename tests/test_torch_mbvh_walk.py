@@ -217,4 +217,4 @@ def test_nvcc_flags_keep_ieee_floats():
     assert _build.sources() == [
         _build.os.path.join(_build.CSRC_DIR, name)
         for name in ('mbvh_walk.cu', 'mbvh_walk_window.cu',
-                     'mbvh_walk_window_k5.cu')]
+                     'mbvh_walk_window_k5.cu', 'physics_step.cu')]

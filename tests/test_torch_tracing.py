@@ -17,7 +17,9 @@ on a small scene (a 1,000 mm black sphere around one PMT cube):
   components, the step loop opens one ``step.reemit`` a step under
   ``step.physics`` and gives the same state on or off, and
   ``simulate.reemitted`` equals the batches' ``BULK_REEMIT`` end flags;
-  in water no ``step.reemit`` opens and nothing is counted.
+  in water no ``step.reemit`` opens and nothing is counted;
+* on the CPU the physics kernel serves no step:
+  ``step.physics_kernel_photons`` is not counted.
 """
 import collections
 import contextlib
@@ -38,6 +40,7 @@ from chroma_tpu_torch import event, gpu, host, tracing
 from chroma_tpu_torch.ops import photon as photon_ops
 from chroma_tpu_torch.ops.propagate import alive_mask
 from chroma_tpu_torch.sim import Simulation
+from tests import torch_scenes
 
 ENQUEUE = ('step.draw', 'step.gather', 'step.walk', 'step.physics',
            'step.scatter')
@@ -45,60 +48,14 @@ BATCH = ('simulate.join', 'simulate.upload', 'simulate.propagate',
          'simulate.hits', 'simulate.daq')
 
 
-def _scene():
-    from chroma_tpu_torch import make
-    from chroma_tpu_torch.demo import optics
-    from chroma_tpu_torch.detector import Detector
-    from chroma_tpu_torch.geometry import Solid
-    det = Detector(optics.water)
-    det.add_solid(Solid(make.sphere(1000.0, nsteps=24), optics.water,
-                        optics.water, surface=optics.black_surface))
-    det.add_pmt(Solid(make.cube(300.0), optics.water, optics.water,
-                      surface=optics.r7081hqe_photocathode),
-                displacement=(0, 0, 500.0))
-    det.set_time_dist_gaussian(1.5, -7.5, 7.5)
-    det.set_charge_dist_gaussian(1.0, 0.1, 0.0, 1.5)
-    det.flatten()
-    return det
-
-
 @pytest.fixture(scope='module')
 def scene():
-    return gpu.GPUDetector(_scene(), 'cpu')
-
-
-def _scint_scene():
-    """The scene with its sphere filled with a scintillator of two
-    components, each absorbing over 600 mm (300 mm together) and
-    reemitting over 380-480 nm with probability 0.3 and 0.8."""
-    from chroma_tpu_torch import make
-    from chroma_tpu_torch.demo import optics
-    from chroma_tpu_torch.detector import Detector
-    from chroma_tpu_torch.geometry import Material, Solid
-    x = np.arange(60.0, 1000.0, 5.0)
-    scint = Material('scint')
-    scint.set('refractive_index', 1.5)
-    scint.set('absorption_length', 300.0)
-    scint.set('scattering_length', 1e6)
-    cdf = np.clip((x - 380.0) / 100.0, 0.0, 1.0)
-    for prob in (0.3, 0.8):
-        scint.add_reemission_component(
-            reemission_prob=np.column_stack([x, np.full_like(x, prob)]),
-            wvl_cdf=np.column_stack([x, cdf]),
-            absorption_length=np.column_stack([x, np.full_like(x, 600.0)]))
-    det = Detector(scint)
-    det.add_solid(Solid(make.sphere(1000.0, nsteps=24), scint,
-                        optics.water, surface=optics.black_surface))
-    det.add_pmt(Solid(make.cube(300.0), scint, scint,
-                      surface=optics.r7081hqe_photocathode),
-                displacement=(0, 0, 500.0))
-    det.flatten()
-    return det
+    return gpu.GPUDetector(torch_scenes.water_scene(), 'cpu')
 
 
 @pytest.fixture(scope='module')
 def scint_scene():
-    return gpu.GPUDetector(_scint_scene(), 'cpu')
+    return gpu.GPUDetector(torch_scenes.scint_scene(), 'cpu')
 
 
 def _bombs(sizes, seed=17):
@@ -176,6 +133,16 @@ def test_step_loop_with_reemission_is_bit_equal_on_and_off(scint_scene):
         a, b = v.numpy(), on.state[k].numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, k
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), k
+
+
+def test_cpu_step_loop_counts_no_kernel_photons(scint_scene):
+    """On the CPU the physics runs in the plain version: the step loop
+    counts its live photons and nothing under
+    ``step.physics_kernel_photons``."""
+    with tracing.recording() as rec:
+        _propagate(scint_scene, _bombs([300])[0], driver='steps')
+    assert rec.counts['step.live_photons'] >= 300
+    assert 'step.physics_kernel_photons' not in rec.counts
 
 
 def test_reemitted_counts_the_bulk_reemit_end_flags(scint_scene):
